@@ -1,0 +1,304 @@
+"""LightGlue matcher: fixed-depth batched transformer over SuperPoint keypoints.
+
+Counterpart of ``mlis_tpu/models/lightglue.py`` (the dual-softmax head;
+the Sinkhorn/SuperGlue head is not ported yet):
+
+* keypoints are normalised by half the larger image side; a learnable
+  Fourier rotary encoding rotates interleaved (even, odd) feature pairs of
+  q and k in self-attention only;
+* each of ``depth`` blocks runs self-attention then cross-attention, both
+  images on one (2B, K, D) batch; the cross source is the batch rolled by B;
+* padding is a suffix (keypoints are score-sorted), so attention masks keys
+  at positions >= kv_len;
+* the head is dual softmax times sigmoid matchability; matches are mutual
+  argmax above the threshold (0.1).
+
+Attention at matcher sizes is plain tensor code, as in the JAX package
+(which sends it to XLA's dense attention below Kx*Ks = 1024^2): logits in
+float32 from the compute-dtype operands, masked with a large negative
+number, softmax in float32, probabilities cast back and multiplied by V.
+Above 1024^2 the JAX package uses its Pallas flash kernel; its CUDA port
+(kernel K2) does not exist yet, so such sizes raise on CUDA.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from mlis_tpu_torch.models.layers import Dense, LayerNorm
+from mlis_tpu_torch.models.superpoint import Keypoints, SuperPoint, SuperPointConfig
+from mlis_tpu_torch.weights import load_npz, matcher_arch_from_npz
+
+FLASH_MIN_PRODUCT = 1024 * 1024  # Kx * Ks above which the reference uses flash attention
+_LARGE_NEGATIVE = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+@dataclasses.dataclass(frozen=True)
+class MatcherConfig:
+    descriptor_dim: int = 256
+    dim: int = 256
+    num_heads: int = 4
+    depth: int = 9
+    match_threshold: float = 0.1
+    dtype: torch.dtype = torch.bfloat16
+
+    @staticmethod
+    def lightglue(**kw) -> "MatcherConfig":
+        return MatcherConfig(**kw)
+
+    @staticmethod
+    def tiny_test(**kw) -> "MatcherConfig":
+        kw.setdefault("descriptor_dim", 32)
+        kw.setdefault("dim", 32)
+        kw.setdefault("num_heads", 2)
+        kw.setdefault("depth", 2)
+        return MatcherConfig(**kw)
+
+
+class Matches(NamedTuple):
+    idx0: torch.Tensor  # (B, K0) int32, best match in image 1, -1 invalid
+    scores: torch.Tensor  # (B, K0) matched confidence
+    valid: torch.Tensor  # (B, K0) bool, mutual + threshold + mask
+
+
+def normalize_keypoints(coords: torch.Tensor, image_hw) -> torch.Tensor:
+    h, w = image_hw
+    size = torch.tensor([w, h], dtype=torch.float32, device=coords.device)
+    return (coords - size / 2.0) / (size.max() / 2.0)
+
+
+class RotaryEncoding(nn.Module):
+    """Bias-free (2 -> Dh/2) projection of normalised coords to angles."""
+
+    def __init__(self, head_dim: int):
+        super().__init__()
+        self.Wr = nn.Parameter(torch.zeros(2, head_dim // 2))
+
+    def forward(self, coords_norm: torch.Tensor):
+        ang = coords_norm.to(torch.float32) @ self.Wr
+        return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate interleaved feature pairs: x (B, K, H, Dh), cos/sin (B, K, Dh/2)."""
+    B, K, H, Dh = x.shape
+    x2 = x.reshape(B, K, H, Dh // 2, 2)
+    a, b = x2[..., 0], x2[..., 1]
+    c = cos[:, :, None, :].to(x.dtype)
+    s = sin[:, :, None, :].to(x.dtype)
+    return torch.stack([a * c - b * s, a * s + b * c], dim=-1).reshape(B, K, H, Dh)
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(Dh), keys >= kv_len masked) v.
+
+    q (B, T, N, Dh), k/v (B, S, N, Dh), kv_len (B,) -> (B, T, N, Dh) in v's
+    dtype. Logits and softmax in float32."""
+    Dh = q.shape[-1]
+    if q.is_cuda and q.shape[1] * k.shape[1] > FLASH_MIN_PRODUCT:
+        raise NotImplementedError(
+            "attention with Kx*Ks > 1024^2 runs the flash-attention kernel K2 "
+            "(mlis_tpu/ops/flash_attention.py::_flash_kernel), which is not ported "
+            "to CUDA yet"
+        )
+    logits = torch.einsum("btnh,bsnh->bnts", q.to(torch.float32), k.to(torch.float32))
+    logits = logits * torch.tensor(1.0 / np.sqrt(Dh), dtype=torch.float32)
+    keep = torch.arange(k.shape[1], device=k.device)[None, :] < kv_len[:, None]  # (B, S)
+    logits = logits.masked_fill(~keep[:, None, None, :], _LARGE_NEGATIVE)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bnts,bsnh->btnh", probs, v)
+
+
+class AttnLayer(nn.Module):
+    """Residual MHA(x <- source) + MLP on concat(x, message), LayerNorm inside."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.q = Dense(dim, dim, dtype=dtype)
+        self.k = Dense(dim, dim, dtype=dtype)
+        self.v = Dense(dim, dim, dtype=dtype)
+        self.proj = Dense(dim, dim, dtype=dtype)
+        self.ffn1 = Dense(2 * dim, 2 * dim, dtype=dtype)
+        self.ffn_norm = LayerNorm(2 * dim)
+        self.ffn2 = Dense(2 * dim, dim, dtype=dtype)
+
+    def forward(self, x, source, source_valid, rot_x=None, rot_src=None):
+        B, Kx, D = x.shape
+        Ks, H = source.shape[1], self.num_heads
+        q = self.q(x).reshape(B, Kx, H, D // H)
+        k = self.k(source).reshape(B, Ks, H, D // H)
+        v = self.v(source).reshape(B, Ks, H, D // H)
+        if rot_x is not None:
+            q = apply_rotary(q, *rot_x)
+        if rot_src is not None:
+            k = apply_rotary(k, *rot_src)
+        kv_len = source_valid.sum(-1)
+        msg = masked_attention(q, k, v, kv_len).reshape(B, Kx, D).to(self.dtype)
+        msg = self.proj(msg)
+        h = self.ffn1(torch.cat([x, msg], dim=-1))
+        h = F.gelu(self.ffn_norm(h).to(self.dtype), approximate="tanh")
+        return x + self.ffn2(h)
+
+
+class MatcherNet(nn.Module):
+    def __init__(self, cfg: MatcherConfig):
+        super().__init__()
+        self.cfg = cfg
+        dt = cfg.dtype
+        self.in_proj = Dense(cfg.descriptor_dim, cfg.dim, dtype=dt)
+        self.posenc = RotaryEncoding(cfg.dim // cfg.num_heads)
+        self.blocks = nn.ModuleList(
+            nn.ModuleDict({
+                "self": AttnLayer(cfg.dim, cfg.num_heads, dt),
+                "cross": AttnLayer(cfg.dim, cfg.num_heads, dt),
+            })
+            for _ in range(cfg.depth)
+        )
+        self.final_proj = Dense(cfg.dim, cfg.dim, dtype=dt)
+        self.matchability = Dense(cfg.dim, 1, dtype=torch.float32)
+
+    def forward(self, d0, c0, m0, d1, c1, m1, image_hw):
+        """d: (B, K, Dd) descriptors, c: (B, K, 2) coords, m: (B, K) masks ->
+        scores (B, K0, K1)."""
+        B, K0, K1 = d0.shape[0], d0.shape[1], d1.shape[1]
+        if K0 != K1:  # pad the smaller stream with masked slots
+            K = max(K0, K1)
+
+            def pad(a, k):
+                return torch.cat([a, a.new_zeros((a.shape[0], K - k, *a.shape[2:]))], 1)
+
+            d0, c0, m0 = pad(d0, K0), pad(c0, K0), pad(m0, K0)
+            d1, c1, m1 = pad(d1, K1), pad(c1, K1), pad(m1, K1)
+        xc = self.in_proj(torch.cat([d0, d1]).to(self.cfg.dtype))
+        rot = self.posenc(normalize_keypoints(torch.cat([c0, c1]), image_hw))
+        mc = torch.cat([m0, m1])
+        ms = torch.roll(mc, B, dims=0)
+        for blk in self.blocks:
+            xc = blk["self"](xc, xc, mc, rot_x=rot, rot_src=rot)
+            xc = blk["cross"](xc, torch.roll(xc, B, dims=0), ms)
+        fc = self.final_proj(xc)
+        f0, f1 = fc[:B], fc[B:]
+        sim = torch.einsum("bkd,bld->bkl", f0.to(torch.float32), f1.to(torch.float32))
+        sim = sim / (self.cfg.dim**0.5)
+        z0 = self.matchability(f0)[..., 0]
+        z1 = self.matchability(f1)[..., 0]
+        mask2d = m0[:, :, None] & m1[:, None, :]
+        sim_m = torch.where(mask2d, sim, torch.full_like(sim, -1e30))
+        p = torch.softmax(sim_m, dim=2) * torch.softmax(sim_m, dim=1)
+        scores = p * torch.sigmoid(z0)[:, :, None] * torch.sigmoid(z1)[:, None, :]
+        return scores[:, :K0, :K1]
+
+
+def extract_matches(scores, m0, m1, threshold: float) -> Matches:
+    """Mutual argmax + threshold, static shapes (argmax takes the first max)."""
+    mask2d = m0[:, :, None] & m1[:, None, :]
+    s = torch.where(mask2d, scores, torch.full_like(scores, -1.0))
+    best1 = s.argmax(dim=2)  # (B, K0)
+    best0 = s.argmax(dim=1)  # (B, K1)
+    k0 = torch.arange(s.shape[1], device=s.device)
+    mutual = best0.gather(1, best1) == k0[None, :]
+    sc = s.gather(2, best1[..., None])[..., 0]
+    valid = mutual & (sc > threshold) & m0
+    return Matches(
+        torch.where(valid, best1, torch.full_like(best1, -1)).to(torch.int32),
+        torch.where(valid, sc, torch.zeros_like(sc)),
+        valid,
+    )
+
+
+class LightGlue:
+    """SuperPoint + fixed-depth LightGlue, batched over pairs."""
+
+    confidence_is_calibrated = True
+
+    def __init__(
+        self,
+        sp_cfg: Optional[SuperPointConfig] = None,
+        matcher_cfg: Optional[MatcherConfig] = None,
+        device="cuda",
+    ):
+        self.device = torch.device(device)
+        self.sp = SuperPoint(sp_cfg or SuperPointConfig(), device=self.device)
+        self.cfg = matcher_cfg or MatcherConfig(descriptor_dim=self.sp.cfg.descriptor_dim)
+        self.net = MatcherNet(self.cfg).to(self.device).eval()
+
+    @classmethod
+    def from_checkpoint(cls, path: str, sp_cfg: Optional[SuperPointConfig] = None,
+                        dtype: torch.dtype = torch.bfloat16, device="cuda") -> "LightGlue":
+        """Matcher whose structure is read from the checkpoint, weights loaded."""
+        cfg = MatcherConfig(dtype=dtype, **matcher_arch_from_npz(path))
+        m = cls(sp_cfg=sp_cfg, matcher_cfg=cfg, device=device)
+        m.load_weights(path)
+        return m
+
+    def load_weights(self, path: str) -> None:
+        """Load a checkpoint holding the matcher and, where present, its
+        SuperPoint front end."""
+        groups = load_npz(path)
+        if "superpoint" in groups:
+            self.sp.load_state(groups["superpoint"])
+        self.net.load_state_dict(groups["matcher"], strict=True)
+        self.net.to(self.device)
+
+    @torch.no_grad()
+    def match_keypoints(self, kp0: Keypoints, kp1: Keypoints, image_hw) -> Matches:
+        scores = self.net(kp0.descriptors, kp0.coords, kp0.mask,
+                          kp1.descriptors, kp1.coords, kp1.mask, tuple(image_hw))
+        return extract_matches(scores, kp0.mask, kp1.mask, self.cfg.match_threshold)
+
+    def make_fused_match_verify(
+        self,
+        image_hw: Tuple[int, int],
+        K: np.ndarray,
+        ransac_threshold: float = 3.0,
+        num_hypotheses: int = 512,
+        confident_threshold: float = 0.5,
+        ransac_subset: int = 0,
+    ):
+        """Matcher + RANSAC + pose over pre-detected keypoints.
+
+        Returns ``run(kp_all, qi, mi, uniforms=None, generator=None)`` giving
+        (n_kp0, n_kp1, n_match, n_inliers, inlier_ratio, E, T, n_confident)
+        per pair; the last is the count of matches with score >=
+        ``confident_threshold``. ``uniforms`` (P, H, 8) feeds RANSAC's
+        hypothesis draws; without it they come from ``generator``."""
+        from mlis_tpu_torch.ops.epipolar import essential_ransac_batch
+
+        image_hw = (int(image_hw[0]), int(image_hw[1]))
+        K_t = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
+
+        @torch.no_grad()
+        def run(kp_all: Keypoints, qi, mi, uniforms=None, generator=None):
+            with record_function("lightglue.match"):
+                kp0 = kp_all.map(lambda x: x[qi])
+                kp1 = kp_all.map(lambda x: x[mi])
+                matches = self.match_keypoints(kp0, kp1, image_hw)
+                idx = matches.idx0.clamp(0, kp1.coords.shape[1] - 1).long()
+                mk1 = kp1.coords.gather(1, idx[..., None].expand(-1, -1, 2))
+            with record_function("epipolar.ransac"):
+                res, T, _good = essential_ransac_batch(
+                    kp0.coords, mk1, matches.valid, K_t, num_hypotheses,
+                    ransac_threshold, ransac_subset, uniforms=uniforms, generator=generator,
+                )
+            return (
+                kp0.mask.sum(1),
+                kp1.mask.sum(1),
+                matches.valid.sum(1),
+                res.num_inliers,
+                res.inlier_ratio,
+                res.E,
+                T,
+                (matches.valid & (matches.scores >= confident_threshold)).sum(1),
+            )
+
+        return run

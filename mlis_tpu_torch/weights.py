@@ -1,0 +1,140 @@
+"""Read the shipped flax-layout ``checkpoints/*.npz`` into PyTorch state dicts.
+
+The checkpoints hold nested parameter trees flattened to '/'-joined keys
+under a ``<name>:`` prefix (for example ``matcher:in_proj/kernel``), stored
+as float16 and restored as float32. :func:`from_jax_params` maps a flax
+tree onto the port's module names:
+
+* Dense kernels ``(in, out)`` become Linear weights ``(out, in)``;
+* Conv kernels HWIO become OIHW;
+* LayerNorm ``scale`` becomes ``weight``; frozen batch-norm ``mean`` and
+  ``var`` become ``running_mean`` and ``running_var``;
+* a subtree stacked along a leading depth axis by ``nn.scan`` (LightGlue's
+  ``blocks``) is split into one entry per layer: ``blocks.0...``,
+  ``blocks.1...``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_RENAME = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+
+
+def flatten_params(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    if hasattr(tree, "items"):
+        for k, v in tree.items():
+            out.update(flatten_params(v, f"{prefix}{k}/"))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def unflatten_params(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return tree
+
+
+def load_params_npz(path: str) -> Dict[str, Any]:
+    """Load a checkpoint npz -> {name: param tree}, floats as float32."""
+    with np.load(path) as z:
+        groups: Dict[str, Dict[str, np.ndarray]] = {}
+        for key in z.files:
+            name, flat_key = key.split(":", 1)
+            v = z[key]
+            if np.issubdtype(v.dtype, np.floating):
+                v = v.astype(np.float32)
+            groups.setdefault(name, {})[flat_key] = v
+    return {name: unflatten_params(flat) for name, flat in groups.items()}
+
+
+def shipped_checkpoint(*names: str) -> Optional[str]:
+    """First existing ``checkpoints/<name>`` at the repository root, or None."""
+    for name in names:
+        p = os.path.join(REPO_ROOT, "checkpoints", name)
+        if os.path.exists(p):
+            return p
+    return None
+
+
+def default_matcher_checkpoint() -> Optional[str]:
+    """The shipped LightGlue checkpoint trained on the trained SuperPoint
+    (``lightglue_homog_sp.npz``), else the random-filter one."""
+    return shipped_checkpoint("lightglue_homog_sp.npz", "lightglue_homog.npz")
+
+
+def default_mixvpr_checkpoint() -> Optional[str]:
+    return shipped_checkpoint("vpr_mixvpr.npz")
+
+
+def matcher_arch_from_npz(path: str) -> Dict[str, int]:
+    """Matcher structure (depth, dim, descriptor_dim, num_heads) read from
+    the checkpoint's own shapes."""
+    with np.load(path) as z:
+        in_proj = z["matcher:in_proj/kernel"]
+        depth = int(z["matcher:blocks/self/q/kernel"].shape[0])
+        head_dim = 2 * int(z["matcher:posenc/Wr"].shape[1])
+    descriptor_dim, dim = int(in_proj.shape[0]), int(in_proj.shape[1])
+    return {
+        "descriptor_dim": descriptor_dim,
+        "dim": dim,
+        "depth": depth,
+        "num_heads": dim // head_dim,
+    }
+
+
+def _convert_leaf(name: str, v: np.ndarray) -> tuple:
+    if name == "kernel":
+        if v.ndim == 2:  # Dense (in, out) -> Linear (out, in)
+            return "weight", np.ascontiguousarray(v.T)
+        if v.ndim == 4:  # Conv HWIO -> OIHW
+            return "weight", np.ascontiguousarray(v.transpose(3, 2, 0, 1))
+        raise ValueError(f"kernel of rank {v.ndim} has no torch layout")
+    return _RENAME.get(name, name), v
+
+
+def from_jax_params(
+    tree: Any, scan_prefixes: Iterable[str] = ("blocks",)
+) -> Dict[str, torch.Tensor]:
+    """Flax parameter tree (numpy leaves) -> flat torch state dict.
+
+    A top-level ``params`` collection is unwrapped. Subtrees named in
+    ``scan_prefixes`` carry a leading depth axis and are split per layer."""
+    if hasattr(tree, "keys") and set(tree.keys()) == {"params"}:
+        tree = tree["params"]
+    scan = tuple(scan_prefixes)
+    out: Dict[str, torch.Tensor] = {}
+    for key, v in flatten_params(tree).items():
+        parts = key.split("/")
+        v = np.asarray(v)
+        if np.issubdtype(v.dtype, np.floating):
+            v = v.astype(np.float32)
+        if parts[0] in scan:
+            for layer in range(v.shape[0]):
+                leaf, arr = _convert_leaf(parts[-1], v[layer])
+                name = ".".join([parts[0], str(layer), *parts[1:-1], leaf])
+                out[name] = torch.from_numpy(np.ascontiguousarray(arr))
+        else:
+            leaf, arr = _convert_leaf(parts[-1], v)
+            out[".".join([*parts[:-1], leaf])] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def load_npz(path: str, scan_prefixes: Iterable[str] = ("blocks",)) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Checkpoint npz -> {name: torch state dict} (float32)."""
+    return {
+        name: from_jax_params(tree, scan_prefixes)
+        for name, tree in load_params_npz(path).items()
+    }

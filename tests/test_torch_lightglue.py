@@ -1,0 +1,145 @@
+"""The port's LightGlue against mlis_tpu's, float32, with
+lightglue_homog_sp.npz loaded on both sides."""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from mlis_tpu.models import lightglue as jlg  # noqa: E402
+from mlis_tpu.models.superpoint import SuperPointConfig as JaxSPC  # noqa: E402
+from mlis_tpu.models.weights import matcher_arch_from_npz  # noqa: E402
+
+from mlis_tpu_torch.models import lightglue as tlg  # noqa: E402
+from mlis_tpu_torch.models.superpoint import Keypoints, SuperPointConfig  # noqa: E402
+
+CKPT = "checkpoints/lightglue_homog_sp.npz"
+HW = (96, 128)
+
+
+@pytest.fixture(scope="module")
+def matchers():
+    ref = jlg.LightGlue(sp_cfg=JaxSPC(max_keypoints=128, dtype=jnp.float32),
+                       matcher_cfg=jlg.MatcherConfig(dtype=jnp.float32, **matcher_arch_from_npz(CKPT)))
+    ref.load_weights(CKPT, image_hw=HW)
+    port = tlg.LightGlue.from_checkpoint(
+        CKPT, sp_cfg=SuperPointConfig(max_keypoints=128, dtype=torch.float32),
+        dtype=torch.float32, device="cpu")
+    return ref, port
+
+
+def _keypoints(rng, n_img=4):
+    base = np.kron(rng.integers(0, 255, (HW[0] // 8 + 1, HW[1] // 8 + 1)), np.ones((8, 8)))
+    imgs = np.stack([np.roll(base[: HW[0], : HW[1]], 2 * i, 1) for i in range(n_img)])
+    return imgs.astype(np.float32)[..., None] / 255.0
+
+
+def test_rotary_and_attention_pieces():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 5, 3, 8)).astype(np.float32)
+    ang = rng.normal(size=(2, 5, 4)).astype(np.float32)
+    want = np.asarray(jlg.apply_rotary(jnp.asarray(x), jnp.cos(ang), jnp.sin(ang)))
+    got = tlg.apply_rotary(torch.from_numpy(x), torch.cos(torch.from_numpy(ang)),
+                           torch.sin(torch.from_numpy(ang))).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    coords = rng.uniform(0, 100, size=(2, 5, 2)).astype(np.float32)
+    np.testing.assert_allclose(
+        tlg.normalize_keypoints(torch.from_numpy(coords), (60, 100)).numpy(),
+        np.asarray(jlg.normalize_keypoints(jnp.asarray(coords), (60, 100))), atol=1e-7)
+    # masked attention with kv lengths, including an empty key set
+    q = rng.normal(size=(3, 6, 2, 8)).astype(np.float32)
+    k = rng.normal(size=(3, 7, 2, 8)).astype(np.float32)
+    v = rng.normal(size=(3, 7, 2, 8)).astype(np.float32)
+    kv_len = np.array([7, 3, 0], np.int32)
+    want = np.asarray(jax.nn.dot_product_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), key_value_seq_lengths=jnp.asarray(kv_len)))
+    got = tlg.masked_attention(*(torch.from_numpy(a) for a in (q, k, v, kv_len))).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-6)
+
+
+def test_matcher_scores_and_matches_with_shipped_weights(matchers):
+    ref, port = matchers
+    rng = np.random.default_rng(1)
+    imgs = _keypoints(rng)
+    kp = ref.sp.detect(jnp.asarray(imgs))
+    j0 = jax.tree_util.tree_map(lambda a: a[:2], kp)
+    j1 = jax.tree_util.tree_map(lambda a: a[2:], kp)
+    want_scores = np.asarray(ref.net.apply(
+        ref.params, j0.descriptors, j0.coords, j0.mask, j1.descriptors, j1.coords, j1.mask, HW))
+    want = ref.match_keypoints(j0, j1, HW)
+
+    t0, t1 = (Keypoints(*(torch.tensor(np.asarray(a)) for a in x)) for x in (j0, j1))
+    got_scores = port.net(t0.descriptors, t0.coords, t0.mask, t1.descriptors, t1.coords,
+                          t1.mask, HW).detach().numpy()
+    # float32 through 9 layers of attention: summation order differs
+    np.testing.assert_allclose(got_scores, want_scores, atol=2e-5)
+    got = port.match_keypoints(t0, t1, HW)
+    np.testing.assert_array_equal(got.idx0.numpy(), np.asarray(want.idx0))
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores), atol=2e-5)
+    assert got.valid.sum() > 10
+
+
+def test_unequal_keypoint_counts_are_padded(matchers):
+    ref, port = matchers
+    rng = np.random.default_rng(2)
+    d0, d1 = (rng.normal(size=(1, k, 256)).astype(np.float32) for k in (40, 64))
+    c0, c1 = (rng.uniform(0, 90, size=(1, k, 2)).astype(np.float32) for k in (40, 64))
+    m0, m1 = np.ones((1, 40), bool), np.arange(64)[None] < 50
+    want = np.asarray(ref.net.apply(ref.params, *(jnp.asarray(a) for a in (d0, c0, m0, d1, c1, m1)), HW))
+    got = port.net(*(torch.from_numpy(a) for a in (d0, c0, m0, d1, c1, m1)), HW).detach().numpy()
+    assert got.shape == want.shape == (1, 40, 64)
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+def _second_view(coords, K, rng):
+    """Where keypoints at random depths move under a rigid motion
+    (x2 ~ R x1 + t): a real two-view geometry for RANSAC to find."""
+    z = rng.uniform(3, 6, coords.shape[0])
+    X = np.c_[(coords - K[:2, 2]) / K[0, 0], np.ones(len(z))] * z[:, None]
+    a = 0.05
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+    P = (X @ R.T + np.array([0.4, 0.05, 0.1])) @ K.T
+    return (P[:, :2] / P[:, 2:]).astype(np.float32)
+
+
+def test_fused_match_verify_with_fed_draws(matchers):
+    """The fused match + RANSAC + pose step on pre-detected keypoints: real
+    SuperPoint keypoints and descriptors, and a second view of each image
+    whose keypoints moved under a rigid motion, fed the reference's RANSAC
+    uniforms."""
+    ref, port = matchers
+    rng = np.random.default_rng(3)
+    K = np.array([[200.0, 0, 64], [0, 200.0, 48], [0, 0, 1]])
+    kp = jax.tree_util.tree_map(np.asarray, ref.sp.detect(jnp.asarray(_keypoints(rng, 2))))
+    moved = [_second_view(c, K, rng) for c in kp.coords]
+    kp = kp._replace(coords=np.stack([kp.coords[0], moved[0], kp.coords[1], moved[1]]),
+                     **{f: np.repeat(getattr(kp, f), 2, axis=0)
+                        for f in ("scores", "descriptors", "mask")})
+    qi, mi = np.array([0, 2, 0]), np.array([1, 3, 3])
+    key = jax.random.PRNGKey(7)
+    want = ref.make_fused_match_verify(HW, K, num_hypotheses=128)(
+        ref.params, jax.tree_util.tree_map(jnp.asarray, kp), jnp.asarray(qi), jnp.asarray(mi), key)
+    u = jax.vmap(lambda kk: jax.random.uniform(kk, (128, 8)))(jax.random.split(key, 3))
+    kp_t = Keypoints(*(torch.tensor(a) for a in kp))
+    got = port.make_fused_match_verify(HW, K, num_hypotheses=128)(
+        kp_t, torch.from_numpy(qi), torch.from_numpy(mi), uniforms=torch.tensor(np.asarray(u)))
+    names = ["n_kp0", "n_kp1", "n_match", "n_inl", "ratio", "E", "T", "n_conf"]
+    w, g = dict(zip(names, want)), dict(zip(names, got))
+    for name in ("n_kp0", "n_kp1", "n_match", "n_conf"):
+        np.testing.assert_array_equal(g[name].numpy(), np.asarray(w[name]))
+    # pairs (0, 1) and (2, 3) are true two-view pairs: every match is an
+    # inlier on both sides. Their correspondences are noise-free, so many
+    # hypotheses explain them within 3 px and E itself is not pinned down
+    # (E and the pose are held on noisy scenes in test_torch_epipolar.py).
+    # Pair (0, 3) matches unrelated keypoints: no RANSAC parity is claimed.
+    assert (g["n_match"].numpy()[:2] >= 60).all()
+    np.testing.assert_array_equal(g["n_inl"].numpy()[:2], np.asarray(w["n_inl"])[:2])
+    np.testing.assert_array_equal(g["n_inl"].numpy()[:2], g["n_match"].numpy()[:2])
+    np.testing.assert_array_equal(g["ratio"].numpy()[:2], np.asarray(w["ratio"])[:2])
+    for p in range(2):
+        T = g["T"][p].numpy()
+        np.testing.assert_allclose(T[:3, :3] @ T[:3, :3].T, np.eye(3), atol=1e-5)
+        assert abs(np.linalg.norm(T[:3, 3]) - 1.0) < 1e-5 and T[3, 3] == 1.0
