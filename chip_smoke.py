@@ -18,16 +18,38 @@ Phases, one line each as they end:
    128 mono8 keyframes at 270x360 with the shipped MixVPR and LightGlue
    checkpoints (one warm-up, three timed runs, one more under
    torch.profiler for the device time per stage and kernel);
+2b. the attention kernels (csrc/attention.cu) against their plain
+   versions on the card, bf16 inputs from a seed: the dense kernel (TPU
+   kernels K4/K5) at the ViT-B/14 shape of path A, without a bias and
+   with a (B, 1, S, T) and a (B, H, S, T) bias; the flash kernel (K2/K3)
+   at LightGlue's fullres shape of path B with kv_len 0, 1, 1500 and
+   2048 among its rows, a ragged S != T case, K3's size S = T = 1280, and
+   a 1370-token ViT sequence through multi_head_attention; each with its
+   error and tolerance, its time, the plain version's, the
+   scaled_dot_product_attention yardstick's, and its bound;
+3. the main path as bench.py's default mode runs it: the sweep through
+   ``gating.integration.analyze``, then ``FullGatePipeline.process`` on
+   128 mono8 keyframes at 270x360 with the shipped MixVPR and LightGlue
+   checkpoints (one warm-up, three timed runs, one more under
+   torch.profiler for the device time per stage and kernel);
 4. the same gate at 16 keyframes on the card and on the CPU in float32
    with TF32 off and the same RANSAC draws: identical candidate and
    survivor pairs, decisions equal except within 1 inlier or 0.01 of
-   ratio of a threshold.
+   ratio of a threshold;
+5. path A, the gate at its default VPR method: CricaVPR (the shipped
+   ViT-B/14 at 322x322, bf16) on phase 3's keyframes, every block's
+   attention on the dense kernel (12 launches per encode batch of 64);
+6. path B, the fullres gate with every keypoint matched: 128 keyframes
+   at 540x720, SuperPoint at 2048 keypoints, the fullres LightGlue, its
+   18 attentions per verify batch on the flash kernel.
+Phases 5 and 6 run like phase 3 (warm-up, three timed runs, one
+profiled run), with every launch counter set to 0 before each run.
 
 The last two lines of standard output are the card's name and power limit
 and ``{"ok": true, "device": {...}}``; the line before them lists each
-ported kernel with its launches on the main path and its times. Any
-failure exits nonzero; so does a run with no CUDA device, or one from a
-directory without the mlis_tpu_torch package.
+ported kernel with its launches on its path and its times. Any failure
+exits nonzero; so does a run with no CUDA device, or one from a directory
+without the mlis_tpu_torch package.
 """
 
 from __future__ import annotations
@@ -43,11 +65,17 @@ import numpy as np
 import torch
 
 H100_FP64_FLOPS = 34e12  # H100 SXM, FP64 outside the tensor cores (NVIDIA data sheet)
+H100_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (NVIDIA data sheet)
 H100_HBM_BYTES_S = 3.35e12
 RADIUS, MIN_GAP = 2.0, 100
 SWEEP_POSES = 19163  # ORB-SLAM3 scale (bench.py:85-91)
 TIMED_REPS = 3
 SMALL_KEYFRAMES = 16  # phase 4
+ENCODE_BATCH = 64  # FullGatePipeline.process's default encode batch (paths A, B)
+VERIFY_BATCH = 256
+KERNEL_REPS = 20  # CUDA-event timing: launches per measurement, after a warm-up
+PLAIN_REPS = 3
+COMPARE_ROWS = 64  # bh rows the plain version checks at the flash kernel's full shape
 BUDGET_S = 1000  # the whole script; the check allows 1200 s
 
 
@@ -94,13 +122,15 @@ def boundary_cloud(n: int = 4000):
     return pos, rng.integers(1, 6, n)
 
 
-def keyframes(n: int, h: int = 270, w: int = 360):
-    """bench.py's headline workload: n mono8 keyframes repeating n/8 scenes."""
+def keyframes(n: int, h: int = 270, w: int = 360, cell: int = 8):
+    """bench.py's headline workload: n mono8 keyframes repeating n/8 scenes
+    of cell x cell blocks (bench.py:133-147; the fullres protocol uses 540x720
+    and cell 16)."""
     rng = np.random.default_rng(0)
     n_scenes = max(n // 8, 1)
     bases = [
-        np.kron(rng.integers(0, 255, (h // 8 + 1, w // 8 + 1), dtype=np.uint8),
-                np.ones((8, 8), np.uint8))[:h, :w]
+        np.kron(rng.integers(0, 255, (h // cell + 1, w // cell + 1), dtype=np.uint8),
+                np.ones((cell, cell), np.uint8))[:h, :w]
         for _ in range(n_scenes)
     ]
     images = np.stack([bases[i % n_scenes] for i in range(n)])
@@ -211,21 +241,218 @@ def phase_kernel_check(dev) -> dict:
                   "plain_ms": f"{plain_ms:.3f}"}
         if dev.type == "cuda":
             fields["kernel_ms"] = f"{time_kernel_ms(pos, fl, ti, tj, r2):.4f}"
+        # the loop bounds skip pairs with j - i < min_gap, so every case
+        # (the full tile grid too) computes the index-valid pairs only
+        pairs = pw.index_valid_pairs(pos.shape[0], MIN_GAP)
+        ops = 9 * pairs
+        nbytes = pos.shape[0] * (24 + 4) + 8 * int(ti.numel()) + 16
+        bound_ms = max(ops / H100_FP64_FLOPS, nbytes / H100_HBM_BYTES_S) * 1e3
+        fields.update(pair_distances=pairs, bound_ms=f"{bound_ms:.4f}")
         if name.startswith("a_"):
-            pairs = pw.index_valid_pairs(pos.shape[0], MIN_GAP)
-            ops = 9 * pairs
-            nbytes = pos.shape[0] * (24 + 4) + 8 * int(ti.numel()) + 16
-            bound_ms = max(ops / H100_FP64_FLOPS, nbytes / H100_HBM_BYTES_S) * 1e3
             stats = {"sweep_counts": got,
                      "ms": float(fields.get("kernel_ms", "nan")), "plain_ms": plain_ms,
                      "bound_ms": bound_ms,
                      "bound_by": "operations" if ops / H100_FP64_FLOPS >= nbytes / H100_HBM_BYTES_S
                      else "bytes"}
-            fields.update(pair_distances=pairs, bound_ms=f"{bound_ms:.4f}")
         print("  K1 " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
     stats["max_abs_err"] = max_err
     log("2 K1 vs plain", t0, identical=True, launches_so_far=pw.tri_count.launches)
     return stats
+
+
+# -- phase 2b: the attention kernels ------------------------------------------------
+
+def events_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn``, CUDA events over ``reps`` calls after a
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(dev, fn, reps: int) -> float:
+    """Mean wall time of ``fn`` ending in a synchronise (the CPU rehearsal's
+    stand-in for events_ms)."""
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync(dev)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def attention_bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the bf16 tensor-core time of the
+    operations and the HBM time of the bytes."""
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_tolerance(v: torch.Tensor, flash: bool):
+    """(rtol, atol, reason) for a bf16 kernel against its plain version."""
+    if not flash:
+        return 2.0**-7, 1e-5, ("bf16 output of float32 arithmetic summed in another order: "
+                               "one bf16 ulp (2^-7 relative)")
+    return 2.0**-7, 2.0**-8 * float(v.abs().max()), (
+        "p is rounded to bf16 before p v at the running max's scale in the kernel and at "
+        "the row max's in the plain version: 2^-9 max|v| per output, plus one bf16 ulp")
+
+
+def check_attention(name, got, want, v, flash: bool) -> dict:
+    rtol, atol, reason = attention_tolerance(v, flash)
+    g, w = got.float(), want.float()
+    both_nan = torch.isnan(g) & torch.isnan(w)
+    diff = (g - w).abs().masked_fill(both_nan, 0.0)
+    err = float(diff.max())
+    bad = (diff > atol + rtol * w.abs()) | (torch.isnan(g) != torch.isnan(w))
+    if bool(bad.any()):
+        raise AssertionError(f"attention case {name}: max_abs_err {err} exceeds rtol {rtol} "
+                             f"atol {atol} at {int(bad.sum())} entries")
+    return {"max_abs_err": err, "rtol": rtol, "atol": atol, "tolerance_reason": reason}
+
+
+def phase_attention_check(dev) -> dict:
+    """Each attention kernel against its plain version on bf16 inputs, with
+    times, the SDPA yardstick and bounds; returns the kernels-line fields."""
+    import torch.nn.functional as F
+
+    from mlis_tpu_torch.ops import attention as att
+    from mlis_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    cuda = dev.type == "cuda"
+    shrink = 1 if cuda else 64  # the CPU rehearsal cuts bh, never S, T or Dh
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def timed(fn, reps):
+        return events_ms(fn, reps) if cuda else host_ms(dev, fn, 1)
+
+    cases = []
+
+    def record(name, kernel, fields):
+        cases.append({"case": name, "kernel": kernel, **fields})
+        print("  2b " + " ".join(f"{k}={v}" for k, v in cases[-1].items()), flush=True)
+
+    # dense kernel (K4, K5) at path A's ViT-B/14 shape: 64 images x 12 heads,
+    # 530 tokens (529 patches + cls), Dh 64
+    B, H, S, Dh = max(64 // shrink, 1), 12, 530, 64
+    q4, k4, v4 = (randn(B, S, H, Dh) for _ in range(3))
+
+    def flat(x):
+        return x.permute(0, 2, 1, 3).reshape(B * H, -1, Dh).contiguous()
+
+    q, k, v = flat(q4), flat(k4), flat(v4)
+    for label, bias in (("K4_no_bias", None), ("K5_bias_B1ST", randn(B, 1, S, S, dtype=torch.float32)),
+                        ("K5_bias_BHST", randn(B, H, S, S, dtype=torch.float32))):
+        before = att.fused_attention.launches
+        got = att.multi_head_attention(q4, k4, v4, bias=bias)
+        sync(dev)
+        if att.fused_attention.launches != before + (1 if cuda else 0):
+            raise AssertionError(f"{label}: multi_head_attention did not launch the dense kernel")
+        bias_f = None if bias is None else bias.expand(B, H, S, S).reshape(B * H, S, S)
+        want = att._reference_attention(q, k, v, bias_f).reshape(B, H, S, Dh).permute(0, 2, 1, 3)
+        fields = check_attention(label, got, want, v, flash=False)
+        flops = 4.0 * S * S * Dh * B * H
+        nbytes = 4.0 * B * H * S * Dh * 2 + (0 if bias is None else bias.numel() * 4)
+        bound_ms, bound_by = attention_bound(flops, nbytes)
+        mask = None if bias is None else bias.to(bf16)
+        # the kernel alone on the flattened heads (the bias read in place);
+        # multi_head_attention adds the layout copies around it
+        kernel = ((lambda: att._launch_dense(q, k, v, bias, heads=H)) if cuda
+                  else (lambda: att.multi_head_attention(q4, k4, v4, bias=bias)))
+        fields.update(
+            shape=f"BH={B * H},S={S},T={S},Dh={Dh}",
+            ms=timed(kernel, KERNEL_REPS),
+            plain_ms=timed(lambda: att._reference_attention(q, k, v, bias_f), PLAIN_REPS),
+            library_ms=timed(lambda: F.scaled_dot_product_attention(
+                *(x.view(B, H, S, Dh) for x in (q, k, v)), attn_mask=mask), KERNEL_REPS),
+            bound_ms=bound_ms, bound_by=bound_by)
+        record(label, "dense_attention", fields)
+    del q4, k4, v4, q, k, v
+
+    # flash kernel (K2, K3): LightGlue's fullres verify batch, 2 x 256 pairs
+    # x 4 heads at 2048 keypoints; kv_len 0, 1, 1500, 2048 among the rows
+    flash_cases = [
+        ("K2_pathB", max(2048 // shrink, 8), 2048, 2048),
+        ("K2_ragged_S_ne_T", 64, 1000, 2047),
+        ("K3_size_1280", max(256 // shrink, 8), 1280, 1280),
+    ]
+    rng = np.random.default_rng(1)
+    for label, BH, S, T in flash_cases:
+        q, k, v = randn(BH, S, 64), randn(BH, T, 64), randn(BH, T, 64)
+        lens = rng.integers(T // 2, T + 1, BH)
+        lens[:4] = [0, 1, min(1500, T), T]
+        if label == "K2_ragged_S_ne_T":
+            lens = rng.integers(0, T + 1, BH)
+            lens[:2] = [0, T]
+        kv = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        before = fa.flash_attention.launches
+        got = fa.flash_attention(q, k, v, kv)
+        sync(dev)
+        if fa.flash_attention.launches != before + (1 if cuda else 0):
+            raise AssertionError(f"{label}: flash_attention did not launch the flash kernel")
+        n = min(COMPARE_ROWS, BH)
+        want = fa.flash_attention_plain(q[:n], k[:n], v[:n], kv[:n])
+        fields = check_attention(label, got[:n], want, v[:n], flash=True)
+        if not bool((got[torch.as_tensor(lens == 0, device=dev)].float() == 0).all()):
+            raise AssertionError(f"{label}: a row with kv_len = 0 is not zeros")
+        keys = float(np.minimum(lens, T).sum())
+        flops = 4.0 * S * Dh * keys
+        nbytes = 2.0 * BH * S * Dh * 2 + 2.0 * keys * Dh * 2 + 4 * BH
+        bound_ms, bound_by = attention_bound(flops, nbytes)
+        add = torch.zeros(BH, 1, 1, T, device=dev, dtype=bf16).masked_fill(
+            torch.arange(T, device=dev)[None, None, None, :] >= kv[:, None, None, None],
+            float("-inf"))
+        fields.update(
+            shape=f"BH={BH},S={S},T={T},Dh=64", compared_rows=n,
+            ms=timed(lambda: fa.flash_attention(q, k, v, kv), KERNEL_REPS),
+            plain_ms=timed(lambda: fa.flash_attention_plain(q, k, v, kv), PLAIN_REPS),
+            library_ms=timed(lambda: F.scaled_dot_product_attention(
+                q[:, None], k[:, None], v[:, None], attn_mask=add), KERNEL_REPS),
+            bound_ms=bound_ms, bound_by=bound_by)
+        record(label, "flash_attention", fields)
+        del q, k, v, add
+
+    # a ViT sequence at 518 px (1370 tokens) through multi_head_attention:
+    # its score tile exceeds 4 MiB, so it dispatches to the flash kernel
+    B, H, S = max(8 // shrink, 1), 12, 1370
+    q4, k4, v4 = (randn(B, S, H, 64) for _ in range(3))
+    before = (fa.flash_attention.launches, att.fused_attention.launches)
+    got = att.multi_head_attention(q4, k4, v4)
+    sync(dev)
+    if cuda and (fa.flash_attention.launches, att.fused_attention.launches) != (
+            before[0] + 1, before[1]):
+        raise AssertionError("a 1370-token ViT sequence did not dispatch to the flash kernel")
+    flat_v = v4.permute(0, 2, 1, 3).reshape(B * H, S, 64)
+    want = fa.flash_attention_plain(*(x.permute(0, 2, 1, 3).reshape(B * H, S, 64).contiguous()
+                                      for x in (q4, k4, v4)))
+    fields = check_attention("vit_1370", got.permute(0, 2, 1, 3).reshape(B * H, S, 64), want,
+                             flat_v, flash=True)
+    bound_ms, bound_by = attention_bound(4.0 * S * S * 64 * B * H, 4.0 * B * H * S * 64 * 2)
+    fields.update(shape=f"BH={B * H},S={S},T={S},Dh=64",
+                  multi_head_attention_ms=timed(lambda: att.multi_head_attention(q4, k4, v4),
+                                                KERNEL_REPS),
+                  bound_ms=bound_ms, bound_by=bound_by)
+    record("vit_1370_via_multi_head_attention", "flash_attention", fields)
+
+    out = {}
+    for kernel, main in (("dense_attention", "K4_no_bias"), ("flash_attention", "K2_pathB")):
+        mine = [c for c in cases if c["kernel"] == kernel]
+        m = next(c for c in mine if c["case"] == main)
+        out[kernel] = {"max_abs_err": max(c["max_abs_err"] for c in mine),
+                       **{f: m[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+    log("2b attention vs plain", t0, cases=len(cases), within_tolerance=True)
+    return out
 
 
 def build_pipeline(dev, dtype, n_kpts: int = 1024):
@@ -252,7 +479,7 @@ def build_pipeline(dev, dtype, n_kpts: int = 1024):
 STAGES = ("gate.detect", "gate.encode", "gate.retrieval", "lightglue.match", "epipolar.ransac")
 
 
-def profile_gate(dev, pipe, inputs, gen, best_wall: float) -> None:
+def profile_gate(dev, pipe, inputs, gen, best_wall: float, encode_batch_size: int = 128) -> None:
     """One more gate run under torch.profiler: device time per stage range
     and per kernel, and the device's busy share of the run."""
     from torch.autograd import DeviceType
@@ -262,7 +489,8 @@ def profile_gate(dev, pipe, inputs, gen, best_wall: float) -> None:
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.process(images, timestamps, floors, K, encode_batch_size=128, generator=gen)
+        pipe.process(images, timestamps, floors, K, encode_batch_size=encode_batch_size,
+                     generator=gen)
         sync(dev)
         wall = time.perf_counter() - t0
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -293,7 +521,7 @@ def phase_main_path(dev, args, expected_sweep) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     log("3 setup", t0, keyframes=len(images), weights="vpr_mixvpr.npz+lightglue_homog_sp.npz")
 
-    pw.tri_count.launches = 0  # counts from here on are the main path's
+    reset_launch_counts()  # counts from here on are the main path's
     t0 = time.perf_counter()
     analysis, _gate = analyze(positions, floors_sweep, RADIUS, MIN_GAP, device=dev)
     sync(dev)
@@ -332,14 +560,154 @@ def phase_main_path(dev, args, expected_sweep) -> dict:
         pipe.spr.vpr.descriptors = []
         profile_gate(dev, pipe, (images, timestamps, floors, K), gen, best_wall)
     name = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu rehearsal"
-    launches = pw.tri_count.launches
+    counts = launch_counts()
+    launches = counts["tri_count"]
     log("3 main path", time.perf_counter(),
         pairs_per_s=f"{best.total_pairs / best_wall:.1f}", device=json.dumps(name),
         walls=",".join(f"{w:.4f}" for w, _ in runs), peak_mem_bytes=peak,
-        K1_launches=launches)
+        K1_launches=launches, launches=json.dumps(counts, separators=(",", ":")))
     if dev.type == "cuda" and launches < 1:
         raise AssertionError("the main path did not launch kernel K1")
+    if counts["flash_attention"] or counts["dense_attention"]:
+        raise AssertionError(f"the bench-protocol gate reached an attention kernel: {counts}")
     return {"launches": launches}
+
+
+def reset_launch_counts() -> None:
+    from mlis_tpu_torch.ops import attention as att
+    from mlis_tpu_torch.ops import flash_attention as fa
+    from mlis_tpu_torch.ops import pairwise as pw
+
+    pw.tri_count.launches = 0
+    fa.flash_attention.launches = 0
+    att.fused_attention.launches = 0
+
+
+def launch_counts() -> dict:
+    from mlis_tpu_torch.ops import attention as att
+    from mlis_tpu_torch.ops import flash_attention as fa
+    from mlis_tpu_torch.ops import pairwise as pw
+
+    return {"tri_count": pw.tri_count.launches, "flash_attention": fa.flash_attention.launches,
+            "dense_attention": att.fused_attention.launches}
+
+
+def drive_gate_path(phase: str, dev, pipe, inputs, expected_launches) -> dict:
+    """One warm-up and TIMED_REPS timed runs of ``pipe.process`` (every
+    launch counter set to 0 before each run and read after it), then one
+    profiled run. ``expected_launches(result)`` gives each kernel's count
+    a run must show on the card."""
+    images, timestamps, floors, K = inputs
+    gen = torch.Generator(device=dev).manual_seed(0)
+    runs = []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for rep in range(TIMED_REPS + 1):
+        pipe.spr.vpr.descriptors = []
+        if hasattr(pipe.spr.vpr, "patch_cache"):
+            pipe.spr.vpr.patch_cache = []
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = pipe.process(images, timestamps, floors, K, encode_batch_size=ENCODE_BATCH,
+                           generator=gen)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        want = expected_launches(res)
+        log(f"{phase} gate {'warmup' if rep == 0 else f'timed{rep}'}", t0,
+            candidates=res.total_pairs, floor_rejected=res.cross_floor_rejected,
+            survivors=res.verified, accepted=res.geometrically_valid,
+            pairs_per_s=f"{res.total_pairs / wall:.1f}", vpr_s=f"{res.vpr_s:.4f}",
+            retrieval_s=f"{res.retrieval_s:.4f}", verify_s=f"{res.verify_s:.4f}",
+            launches=json.dumps(counts, separators=(",", ":")))
+        if res.total_pairs <= 0 or res.verified <= 0 or \
+                res.verified != res.total_pairs - res.cross_floor_rejected:
+            raise AssertionError(f"{phase}: gate counts inconsistent: {res.summary()}")
+        for r in res.results:
+            if r.relative_pose is not None and not np.isfinite(r.relative_pose).all():
+                raise AssertionError(f"{phase}: non-finite pose for pair {(r.query_idx, r.match_idx)}")
+        if dev.type == "cuda" and counts != want:
+            raise AssertionError(f"{phase}: kernel launches {counts}, expected {want}")
+        if rep:
+            runs.append((wall, res, counts))
+    best_wall, best, counts = min(runs, key=lambda x: x[0])
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        pipe.spr.vpr.descriptors = []
+        if hasattr(pipe.spr.vpr, "patch_cache"):
+            pipe.spr.vpr.patch_cache = []
+        profile_gate(dev, pipe, inputs, gen, best_wall, encode_batch_size=ENCODE_BATCH)
+    log(f"{phase} summary", time.perf_counter(),
+        pairs_per_s=f"{best.total_pairs / best_wall:.1f}",
+        walls=",".join(f"{w:.4f}" for w, _, _ in runs), peak_mem_bytes=peak,
+        launches_per_run=json.dumps(counts, separators=(",", ":")))
+    return counts
+
+
+def phase_path_a(dev, args) -> dict:
+    """The gate at its default VPR method: CricaVPR (vpr_crica.npz, ViT-B/14
+    at 322x322, bf16), the shipped half-res LightGlue at 1024 detected / 512
+    matched keypoints, on phase 3's keyframes."""
+    from mlis_tpu_torch.gating.full_gate import FullGatePipeline
+    from mlis_tpu_torch.gating.place_recognition import SemanticPlaceRecognition
+    from mlis_tpu_torch.gating.verification import GeometricVerifier
+    from mlis_tpu_torch.models.lightglue import LightGlue
+    from mlis_tpu_torch.models.superpoint import SuperPointConfig
+    from mlis_tpu_torch.weights import default_matcher_checkpoint
+
+    t0 = time.perf_counter()
+    inputs = keyframes(args.keyframes)
+    matcher = LightGlue.from_checkpoint(
+        default_matcher_checkpoint(), sp_cfg=SuperPointConfig(max_keypoints=1024), device=dev)
+    spr = SemanticPlaceRecognition("cricavpr", similarity_threshold=0.3, min_time_gap=10.0,
+                                   device=dev)
+    pipe = FullGatePipeline(vpr=spr, verifier=GeometricVerifier(matcher=matcher),
+                            similarity_threshold=0.3, verify_batch=VERIFY_BATCH, match_top_k=512,
+                            matcher_weights=None, num_hypotheses=512, device=dev)
+    n = len(inputs[0])
+    log("5 setup", t0, keyframes=n, weights="vpr_crica.npz+lightglue_homog_sp.npz",
+        vit="dinov2_vitb14 bf16 322x322", encode_batch=ENCODE_BATCH)
+
+    def expected(res):
+        return {"tri_count": 0, "flash_attention": 0,
+                "dense_attention": 12 * -(-n // ENCODE_BATCH)}
+
+    return drive_gate_path("5", dev, pipe, inputs, expected)
+
+
+def phase_path_b(dev, args) -> dict:
+    """The fullres gate with every keypoint matched (bench.py's fullres
+    protocol with MLIS_MATCH_TOP_K=0): 540x720 keyframes of 16-pixel cells,
+    MixVPR, SuperPoint at 2048 keypoints, the fullres LightGlue, verify
+    batches of 256."""
+    from mlis_tpu_torch.gating.full_gate import FullGatePipeline
+    from mlis_tpu_torch.gating.place_recognition import SemanticPlaceRecognition
+    from mlis_tpu_torch.gating.verification import GeometricVerifier
+    from mlis_tpu_torch.models.lightglue import LightGlue
+    from mlis_tpu_torch.models.resnet import ResNetConfig
+    from mlis_tpu_torch.models.superpoint import SuperPointConfig
+    from mlis_tpu_torch.weights import default_fullres_matcher_checkpoint
+
+    t0 = time.perf_counter()
+    inputs = keyframes(args.keyframes, 540, 720, cell=16)
+    ckpt = default_fullres_matcher_checkpoint()
+    matcher = LightGlue.from_checkpoint(ckpt, sp_cfg=SuperPointConfig(max_keypoints=2048),
+                                        device=dev)
+    spr = SemanticPlaceRecognition("mixvpr", similarity_threshold=0.3, min_time_gap=10.0,
+                                   device=dev,
+                                   backbone_cfg=ResNetConfig(crop_stage=3, dtype=torch.bfloat16))
+    pipe = FullGatePipeline(vpr=spr, verifier=GeometricVerifier(matcher=matcher),
+                            similarity_threshold=0.3, verify_batch=VERIFY_BATCH, match_top_k=None,
+                            matcher_weights=None, num_hypotheses=512, device=dev)
+    depth = matcher.cfg.depth
+    log("6 setup", t0, keyframes=len(inputs[0]), resolution="540x720", detect=2048,
+        match="all", weights=f"vpr_mixvpr.npz+{ckpt.rsplit('/', 1)[-1]}", cut="none")
+
+    def expected(res):
+        return {"tri_count": 0, "dense_attention": 0,
+                "flash_attention": 2 * depth * -(-res.verified // VERIFY_BATCH)}
+
+    return drive_gate_path("6", dev, pipe, inputs, expected)
 
 
 def phase_card_vs_cpu(dev) -> None:
@@ -393,8 +761,11 @@ def main() -> int:
     with torch.inference_mode():
         phase_build(dev)
         k1 = phase_kernel_check(dev)
+        attn = phase_attention_check(dev)
         main_path = phase_main_path(dev, args, k1["sweep_counts"])
         phase_card_vs_cpu(dev)
+        path_a = phase_path_a(dev, args)
+        path_b = phase_path_b(dev, args)
     signal.alarm(0)
     print(f"[total] {time.perf_counter() - t_all:.3f}s", flush=True)
     if dev.type != "cuda":
@@ -412,6 +783,20 @@ def main() -> int:
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the floor-split count
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "mlis_tpu_torch/csrc/attention.cu",
+        "replaces": "mlis_tpu/ops/flash_attention.py:31, mlis_tpu/ops/flash_attention.py:80",
+        "launches": path_b["flash_attention"],
+        **attn["flash_attention"],
+    }, {
+        "name": "dense_attention",
+        "route": "cuda",
+        "source": "mlis_tpu_torch/csrc/attention.cu",
+        "replaces": "mlis_tpu/ops/attention.py:25, mlis_tpu/ops/attention.py:38",
+        "launches": path_a["dense_attention"],
+        **attn["dense_attention"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_name_and_power(), flush=True)

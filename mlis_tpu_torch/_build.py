@@ -113,9 +113,13 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build()["path"])
-        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        p, i, d, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
         lib.mlis_tri_count.argtypes = [p, p, p, p, i, i, i, d, p, p]
         lib.mlis_tri_count.restype = ctypes.c_int
+        lib.mlis_flash_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.mlis_flash_attention.restype = ctypes.c_int
+        lib.mlis_dense_attention.argtypes = [p, p, p, p, i, ll, ll, ll, p, i, i, i, i, i, p]
+        lib.mlis_dense_attention.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -25,7 +25,7 @@ class GatingConfig:
 
 @dataclass
 class VPRConfig:
-    method: str = "cricavpr"  # only mixvpr is ported so far
+    method: str = "cricavpr"  # cricavpr | mixvpr are ported
     top_k: int = 10
     similarity_threshold: float = 0.5
     min_time_gap_s: float = 10.0

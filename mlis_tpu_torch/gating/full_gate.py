@@ -5,7 +5,8 @@ Counterpart of the standard two-phase path of
 ``survivor_budget=None`` and ``monolithic=False``). Stage order:
 
 1. keypoints detected once per keyframe (SuperPoint, optionally pruned to
-   the top ``match_top_k`` by score) and VPR descriptors (MixVPR);
+   the top ``match_top_k`` by score) and VPR descriptors (CricaVPR by
+   default, or MixVPR);
 2. cosine top-k retrieval with the temporal mask, unique (lo, hi) pairs
    above the similarity threshold, the strict floor gate and survivor
    compaction in ascending (lo, hi) order -- all on the device
@@ -140,7 +141,7 @@ class FullGatePipeline:
         self,
         vpr: Optional[SemanticPlaceRecognition] = None,
         verifier: Optional[GeometricVerifier] = None,
-        vpr_method: str = "mixvpr",
+        vpr_method: str = "cricavpr",
         matcher_type: str = "lightglue",
         top_k: int = 10,
         similarity_threshold: float = 0.5,

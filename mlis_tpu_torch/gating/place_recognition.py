@@ -2,8 +2,10 @@
 
 Counterpart of ``mlis_tpu/gating/place_recognition.py`` as far as the full
 gate needs it: a descriptor database filled through any encoder with
-``encode_batch(images) -> (B, D)``, and ``SemanticPlaceRecognition``, which
-builds the MixVPR encoder (the one VPR method ported so far).
+``encode_batch(images) -> (B, D)``, the ``PlaceMatch`` record the rerank
+returns, and ``SemanticPlaceRecognition``, which builds a ported encoder:
+MixVPR (its default, as in the JAX package) or CricaVPR (the default of
+``FullGatePipeline``).
 """
 
 from __future__ import annotations
@@ -12,6 +14,18 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
+
+
+@dataclass
+class PlaceMatch:
+    """A retrieval match."""
+
+    query_idx: int
+    match_idx: int
+    similarity: float
+    query_timestamp: Optional[float] = None
+    match_timestamp: Optional[float] = None
+    is_valid: bool = True
 
 
 @dataclass
@@ -90,6 +104,10 @@ def _build_vpr(method: str, device="cuda", **kwargs) -> BasePlaceRecognition:
         from mlis_tpu_torch.models.mixvpr import MixVPR
 
         return MixVPR(device=device, **kwargs)
+    if method == "cricavpr":
+        from mlis_tpu_torch.models.cricavpr import CricaVPR
+
+        return CricaVPR(device=device, **kwargs)
     raise ValueError(
-        f"VPR method {method!r} is not ported to mlis_tpu_torch yet (available: mixvpr)"
+        f"VPR method {method!r} is not ported to mlis_tpu_torch yet (available: mixvpr, cricavpr)"
     )

@@ -14,11 +14,14 @@ the Sinkhorn/SuperGlue head is not ported yet):
   argmax above the threshold (0.1).
 
 Attention at matcher sizes is plain tensor code, as in the JAX package
-(which sends it to XLA's dense attention below Kx*Ks = 1024^2): logits in
+(which sends it to XLA's dense attention up to Kx*Ks = 1024^2): logits in
 float32 from the compute-dtype operands, masked with a large negative
 number, softmax in float32, probabilities cast back and multiplied by V.
-Above 1024^2 the JAX package uses its Pallas flash kernel; its CUDA port
-(kernel K2) does not exist yet, so such sizes raise on CUDA.
+Above 1024^2 the JAX package uses its Pallas flash kernel; here such sizes
+go to :func:`mlis_tpu_torch.ops.flash_attention.flash_mha` on both devices
+(the flash kernel on CUDA, its plain version on the CPU). The two paths
+differ for a row with no valid key: the dense one averages V, the flash
+one returns zeros, as the JAX package's flash kernel does.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from torch.profiler import record_function
 
 from mlis_tpu_torch.models.layers import Dense, LayerNorm
 from mlis_tpu_torch.models.superpoint import Keypoints, SuperPoint, SuperPointConfig
+from mlis_tpu_torch.ops.flash_attention import flash_mha
 from mlis_tpu_torch.weights import load_npz, matcher_arch_from_npz
 
 FLASH_MIN_PRODUCT = 1024 * 1024  # Kx * Ks above which the reference uses flash attention
@@ -101,17 +105,14 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T / sqrt(Dh), keys >= kv_len masked) v.
 
     q (B, T, N, Dh), k/v (B, S, N, Dh), kv_len (B,) -> (B, T, N, Dh) in v's
-    dtype. Logits and softmax in float32."""
+    dtype. Logits and softmax in float32; above Kx*Ks = 1024^2 the flash
+    kernel (bf16 p v operands, as in the JAX package)."""
     Dh = q.shape[-1]
-    if q.is_cuda and q.shape[1] * k.shape[1] > FLASH_MIN_PRODUCT:
-        raise NotImplementedError(
-            "attention with Kx*Ks > 1024^2 runs the flash-attention kernel K2 "
-            "(mlis_tpu/ops/flash_attention.py::_flash_kernel), which is not ported "
-            "to CUDA yet"
-        )
+    keep = torch.arange(k.shape[1], device=k.device)[None, :] < kv_len[:, None]  # (B, S)
+    if q.shape[1] * k.shape[1] > FLASH_MIN_PRODUCT:
+        return flash_mha(q, k, v, kv_valid=keep).to(v.dtype)
     logits = torch.einsum("btnh,bsnh->bnts", q.to(torch.float32), k.to(torch.float32))
     logits = logits * torch.tensor(1.0 / np.sqrt(Dh), dtype=torch.float32)
-    keep = torch.arange(k.shape[1], device=k.device)[None, :] < kv_len[:, None]  # (B, S)
     logits = logits.masked_fill(~keep[:, None, None, :], _LARGE_NEGATIVE)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bnts,bsnh->btnh", probs, v)

@@ -11,7 +11,12 @@ tree onto the port's module names:
   ``var`` become ``running_mean`` and ``running_var``;
 * a subtree stacked along a leading depth axis by ``nn.scan`` (LightGlue's
   ``blocks``) is split into one entry per layer: ``blocks.0...``,
-  ``blocks.1...``.
+  ``blocks.1...``;
+* every other leaf keeps its name and layout. For the ViT that covers
+  ``block{i}/attn/qkv`` (a Dense, so (in, 3 dim) -> (3 dim, in)),
+  ``patch_embed`` (a Conv, HWIO -> OIHW), ``pos_embed``, ``cls_token``,
+  ``register_tokens`` and the LayerScale ``ls1``/``ls2`` ``gamma``; its
+  blocks are named ``block0`` ... rather than scanned, so no split applies.
 """
 
 from __future__ import annotations
@@ -75,8 +80,20 @@ def default_matcher_checkpoint() -> Optional[str]:
     return shipped_checkpoint("lightglue_homog_sp.npz", "lightglue_homog.npz")
 
 
+def default_fullres_matcher_checkpoint() -> Optional[str]:
+    """The LightGlue checkpoint trained at 540x720 with 1024 keypoints
+    (``lightglue_homog_sp_fullres.npz``) for the fullres protocol, else the
+    half-res default."""
+    return shipped_checkpoint("lightglue_homog_sp_fullres.npz") or default_matcher_checkpoint()
+
+
 def default_mixvpr_checkpoint() -> Optional[str]:
     return shipped_checkpoint("vpr_mixvpr.npz")
+
+
+def default_crica_checkpoint() -> Optional[str]:
+    """The in-env-trained CricaVPR ViT-B/14 (``vpr_crica.npz``)."""
+    return shipped_checkpoint("vpr_crica.npz")
 
 
 def matcher_arch_from_npz(path: str) -> Dict[str, int]:

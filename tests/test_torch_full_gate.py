@@ -183,8 +183,8 @@ def test_from_config_builds_the_mixvpr_gate():
     assert pipe.verifier.matcher.sp.cfg.max_keypoints == 256
     assert pipe.matcher_weights_loaded is not None  # shipped LightGlue loaded
     assert pipe.spr.vpr.descriptor_dim == 4096
-    with pytest.raises(ValueError, match="not ported"):
-        FullGatePipeline.from_config(PipelineConfig(), device="cpu")  # cricavpr
+    default = FullGatePipeline.from_config(PipelineConfig(), device="cpu")  # cricavpr, as in mlis_tpu
+    assert type(default.spr.vpr).__name__ == "CricaVPR" and default.spr.vpr.descriptor_dim == 10752
 
 
 def test_verify_pairs_batch_and_floor_skip():

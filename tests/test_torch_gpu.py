@@ -1,6 +1,8 @@
-"""Card-only tests of the port: the CUDA kernel against its plain version
-and the gate on the card against the CPU. They need an NVIDIA card and
-``nvcc``; without a card they skip. Run them on the card with
+"""Card-only tests of the port: the CUDA kernels (the candidate sweep,
+flash and dense attention) against their plain versions, their launch
+counters and input checks, and the gate on the card against the CPU.
+They need an NVIDIA card and ``nvcc``; without a card they skip. Run them
+on the card with
 
     MLIS_TEST_PLATFORM=gpu python -m pytest -m gpu tests/test_torch_gpu.py
 
@@ -58,12 +60,138 @@ def test_kernel_wrapper_rejects_mixed_devices(cuda):
         pw.tri_count(p, f.cpu(), ti, tj, 10, 4.0)
 
 
-def test_long_attention_raises_on_the_card(cuda):
+def test_long_attention_runs_the_flash_kernel(cuda):
+    """LightGlue attention above Kx*Ks = 1024^2 launches the flash kernel."""
     from mlis_tpu_torch.models.lightglue import masked_attention
+    from mlis_tpu_torch.ops.flash_attention import flash_attention
 
-    q = torch.zeros(1, 1025, 1, 8, device=cuda)
-    with pytest.raises(NotImplementedError, match="K2"):
-        masked_attention(q, q, q, torch.tensor([1025], device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(2, 1025, 2, 16, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    lens = torch.tensor([1025, 0], device=cuda)
+    before = flash_attention.launches
+    out = masked_attention(q, k, v, lens)
+    assert flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all() and not out[1].float().any()
+
+
+# bf16 keeps 8 significant bits: two roundings of nearly equal float32
+# values may land one bf16 ulp apart, up to 2^-7 of the value
+BF16_RTOL = 2.0**-7
+
+
+def _attn_inputs(cuda, shapes, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(*s, generator=g, device=cuda).to(dtype) for s in shapes]
+
+
+def _assert_attention_close(got, want, v, dtype, flash):
+    if dtype == torch.float32:
+        # an online softmax against a one-shot one: float32 rounding
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        return
+    atol = 1e-5
+    if flash:
+        # p is rounded to bf16/f16 before p v at the scale of the running
+        # max in the kernel, of the row max in the plain version: each p
+        # may differ by 2^-9 of itself, the output by 2^-9 max|v|
+        atol = 2.0**-8 * float(v.abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("S,T,Dh,lens", [
+    (300, 600, 32, None),
+    (130, 70, 16, [70, 0, 1, 33]),
+    (256, 2048, 64, [2048, 1500, 1, 0]),
+    (100, 200, 16, [200, 7]),
+])
+def test_flash_kernel_equals_plain_version(cuda, dtype, S, T, Dh, lens):
+    from mlis_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    BH = 2 if lens is None else len(lens)
+    q, k, v = _attn_inputs(cuda, [(BH, S, Dh), (BH, T, Dh), (BH, T, Dh)], dtype, S + T)
+    kv = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, kv)
+    assert flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, kv)
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_attention_close(got, want, v, dtype, flash=True)
+    if lens is not None:
+        for i, n in enumerate(lens):
+            if n == 0:
+                assert not got[i].float().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("bias", [None, "per_batch", "per_head"])
+def test_dense_kernel_equals_plain_version(cuda, dtype, bias):
+    from mlis_tpu_torch.ops.attention import _reference_attention, fused_attention, multi_head_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, T, H, Dh = 3, 530, 530, 4, 64
+    q, k, v = _attn_inputs(cuda, [(B, S, H, Dh), (B, T, H, Dh), (B, T, H, Dh)], dtype, 7)
+    b = None
+    if bias is not None:
+        (b,) = _attn_inputs(cuda, [(B, 1 if bias == "per_batch" else H, S, T)], torch.float32, 8)
+    before = fused_attention.launches
+    got = multi_head_attention(q, k, v, bias=b)
+    assert fused_attention.launches == before + 1
+    torch.cuda.synchronize()
+
+    def flat(x):
+        return x.permute(0, 2, 1, 3).reshape(B * H, -1, Dh)
+
+    bf = None if b is None else b.expand(B, H, S, T).reshape(B * H, S, T)
+    want = _reference_attention(flat(q), flat(k), flat(v), bf).reshape(B, H, S, Dh).permute(0, 2, 1, 3)
+    _assert_attention_close(got, want, v, dtype, flash=False)
+    if bf is not None:  # the (BH, S, T) bias of fused_attention
+        out = fused_attention(flat(q).contiguous(), flat(k).contiguous(), flat(v).contiguous(), bf)
+        _assert_attention_close(out, flat(want), v, dtype, flash=False)
+
+
+def test_dense_kernel_masked_rows(cuda):
+    """A -inf mask: masked keys get no weight, a fully masked row is NaN
+    (as the TPU kernel's softmax gives)."""
+    from mlis_tpu_torch.ops.attention import _reference_attention, fused_attention
+
+    q, k, v = _attn_inputs(cuda, [(2, 70, 32), (2, 90, 32), (2, 90, 32)], torch.bfloat16, 9)
+    mask = torch.zeros(2, 70, 90, device=cuda)
+    mask[:, :, 60:] = float("-inf")
+    mask[1, 5] = float("-inf")
+    got = fused_attention(q, k, v, mask)
+    want = _reference_attention(q, k, v, mask)
+    assert torch.isnan(got[1, 5].float()).all() and not torch.isnan(got[0].float()).any()
+    ok = ~torch.isnan(want.float())
+    torch.testing.assert_close(got.float()[ok], want.float()[ok], rtol=BF16_RTOL, atol=1e-5)
+
+
+def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from mlis_tpu_torch.ops.attention import fused_attention
+    from mlis_tpu_torch.ops.flash_attention import flash_attention
+
+    q = torch.zeros(2, 64, 64, device=cuda, dtype=torch.bfloat16)
+    for fn in (flash_attention, fused_attention):
+        with pytest.raises(ValueError, match="dtype"):
+            fn(q.double(), q.double(), q.double())
+        with pytest.raises(ValueError, match="dtype"):
+            fn(q, q.float(), q)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(q.transpose(1, 2), q, q)
+        with pytest.raises(ValueError, match="head width"):
+            fn(q[..., :24].contiguous(), q[..., :24].contiguous(), q[..., :24].contiguous())
+        with pytest.raises(ValueError, match="is on cpu"):
+            fn(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="kv_len"):
+        flash_attention(q, q, q, torch.zeros(3, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="bias is on cpu"):
+        fused_attention(q, q, q, torch.zeros(2, 64, 64))
+    with pytest.raises(ValueError, match="bias must be"):
+        fused_attention(q, q, q, torch.zeros(2, 64, 63, device=cuda))
 
 
 def test_tiny_gate_card_matches_cpu(cuda):

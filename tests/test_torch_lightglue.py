@@ -143,3 +143,75 @@ def test_fused_match_verify_with_fed_draws(matchers):
         T = g["T"][p].numpy()
         np.testing.assert_allclose(T[:3, :3] @ T[:3, :3].T, np.eye(3), atol=1e-5)
         assert abs(np.linalg.norm(T[:3, 3]) - 1.0) < 1e-5 and T[3, 3] == 1.0
+
+
+def test_long_attention_goes_through_flash(monkeypatch):
+    """A tiny matcher at 1100 x 1100 keypoints (above Kx*Ks = 1024^2): the
+    port's attention goes through flash_mha (its plain version here), the
+    reference's through XLA's dense attention on the CPU."""
+    from mlis_tpu_torch.weights import from_jax_params
+
+    ref = jlg.LightGlue(sp_cfg=JaxSPC.tiny_test(max_keypoints=64, dtype=jnp.float32),
+                       matcher_cfg=jlg.MatcherConfig.tiny_test(dtype=jnp.float32))
+    K, hw = 1100, (540, 720)
+    ref._init(K, K, hw)  # the reference initialises its parameters lazily
+    net = tlg.MatcherNet(tlg.MatcherConfig.tiny_test(dtype=torch.float32))
+    net.load_state_dict(from_jax_params(jax.device_get(ref.params)), strict=True)
+    rng = np.random.default_rng(4)
+    d0, d1 = (rng.normal(size=(2, K, 32)).astype(np.float32) for _ in range(2))
+    d1[:, :200] = d0[:, :200] + 0.05 * rng.normal(size=(2, 200, 32)).astype(np.float32)
+    c0 = rng.uniform(0, 540, size=(2, K, 2)).astype(np.float32)
+    c1 = c0 + rng.normal(size=c0.shape).astype(np.float32)
+    m0 = np.ones((2, K), bool)
+    m1 = np.arange(K)[None] < np.array([[K], [1030]])  # prefix-valid, as top-k gives
+    calls = []
+    real = tlg.flash_mha
+
+    def spy(*a, **kw):
+        calls.append(tuple(a[0].shape))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tlg, "flash_mha", spy)
+    args = (d0, c0, m0, d1, c1, m1)
+    want = np.asarray(ref.net.apply(ref.params, *(jnp.asarray(a) for a in args), hw))
+    with torch.no_grad():
+        got = net(*(torch.from_numpy(a) for a in args), hw)
+    assert calls == [(4, K, 2, 16)] * 4  # self + cross attention in each of 2 blocks
+    # float32; softmax sums over 1100 keys in another order than XLA's dense
+    # attention, then two more softmaxes in the head: 6e-6 relative measured
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-6)
+    wm = jlg.extract_matches(jnp.asarray(want), jnp.asarray(m0), jnp.asarray(m1), 0.1)
+    gm = tlg.extract_matches(got, torch.from_numpy(m0), torch.from_numpy(m1), 0.1)
+    np.testing.assert_array_equal(gm.idx0.numpy(), np.asarray(wm.idx0))
+    np.testing.assert_array_equal(gm.valid.numpy(), np.asarray(wm.valid))
+    np.testing.assert_allclose(gm.scores.numpy(), np.asarray(wm.scores), rtol=2e-5, atol=2e-6)
+    assert gm.valid.sum() > 50
+
+
+def test_fullres_checkpoint_at_540x720():
+    """The fullres matcher (lightglue_homog_sp_fullres.npz) through
+    from_checkpoint, against the reference loaded at image_hw=(540, 720)."""
+    from mlis_tpu.models.weights import default_fullres_matcher_checkpoint as jax_default
+
+    from mlis_tpu_torch.weights import default_fullres_matcher_checkpoint
+
+    path = default_fullres_matcher_checkpoint()
+    assert path is not None and path.endswith(jax_default().split("/")[-1])
+    hw = (540, 720)
+    ref = jlg.LightGlue(sp_cfg=JaxSPC(max_keypoints=96, dtype=jnp.float32),
+                       matcher_cfg=jlg.MatcherConfig(dtype=jnp.float32, **matcher_arch_from_npz(path)))
+    ref.load_weights(path, image_hw=hw)
+    port = tlg.LightGlue.from_checkpoint(path, sp_cfg=SuperPointConfig(max_keypoints=96, dtype=torch.float32),
+                                         dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(5)
+    d = rng.normal(size=(1, 96, 256)).astype(np.float32)
+    c = rng.uniform(0, 540, size=(1, 96, 2)).astype(np.float32)
+    m = np.ones((1, 96), bool)
+    args = (d, c, m, d + 0.1 * rng.normal(size=d.shape).astype(np.float32), c + 2.0, m)
+    want = np.asarray(ref.net.apply(ref.params, *(jnp.asarray(a) for a in args), hw))
+    with torch.no_grad():
+        got = port.net(*(torch.from_numpy(a) for a in args), hw).numpy()
+    # float32 through 9 layers of attention, as in the half-res test above;
+    # these near-duplicate views give sharper softmaxes (1.1e-4 relative on
+    # one of 9216 scores measured)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)

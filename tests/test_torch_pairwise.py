@@ -194,10 +194,17 @@ def test_port_runs_without_jax_or_mlis_tpu():
         import mlis_tpu_torch.gating.full_gate, mlis_tpu_torch.gating.integration
         import mlis_tpu_torch.models.lightglue, mlis_tpu_torch.models.mixvpr
         import mlis_tpu_torch.ops.epipolar, mlis_tpu_torch._build
+        import mlis_tpu_torch.ops.attention, mlis_tpu_torch.ops.flash_attention
+        import mlis_tpu_torch.ops.pooling, mlis_tpu_torch.models.vit
+        import mlis_tpu_torch.models.cricavpr, mlis_tpu_torch.gating.place_recognition
         rng = np.random.default_rng(0)
         pos = rng.normal(size=(700, 3)) * 3
         fl = rng.integers(1, 4, 700)
         assert candidate_counts(pos, fl, device="cpu") == candidate_counts_host(pos, fl)
+        import torch
+        from mlis_tpu_torch.models.vit import ViT, ViTConfig
+        toks = ViT(ViTConfig.tiny_test(dtype=torch.float32))(torch.rand(1, 98, 98, 3))
+        assert toks["patches"].shape == (1, 49, 64)
         assert not any(m == "jax" or m.startswith(("jax.", "mlis_tpu.")) or m == "mlis_tpu"
                        for m, v in sys.modules.items() if v is not None)
         print("ok")
