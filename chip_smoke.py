@@ -21,7 +21,9 @@ Phases, one line each as they end:
 2b. the attention kernels (csrc/attention.cu) against their plain
    versions on the card, bf16 inputs from a seed: the dense kernel (TPU
    kernels K4/K5) at the ViT-B/14 shape of path A, without a bias and
-   with a (B, 1, S, T) and a (B, H, S, T) bias; the flash kernel (K2/K3)
+   with a (B, 1, S, T) and a (B, H, S, T) bias, and on the ViT's strided
+   slices of a packed qkv (through multi_head_attention and alone); the
+   flash kernel (K2/K3)
    at LightGlue's fullres shape of path B with kv_len 0, 1, 1500 and
    2048 among its rows, a ragged S != T case, K3's size S = T = 1280, and
    a 1370-token ViT sequence through multi_head_attention; each with its
@@ -177,10 +179,33 @@ def phase_build(dev) -> None:
 
     info = _build.build(ptxas_verbose=True)
     _build.library()
-    for line in info["ptxas"].splitlines():
-        if "ptxas" in line:
-            print("  " + line.strip(), flush=True)
+    for kernel, report in ptxas_report(info["ptxas"]):
+        print(f"  ptxas {kernel}: {report}", flush=True)
     log("1 build", t0, built=info["built"], nvcc_s=f"{info['seconds']:.3f}", lib=info["path"])
+
+
+def ptxas_report(text: str):
+    """(kernel, registers / spills / shared memory) per entry function of
+    nvcc's -Xptxas -v output, the template arguments spelled out."""
+    import re
+
+    out, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            name = next((k for k in ("attention_wgmma_kernel", "attention_f32_kernel",
+                                     "tri_count_kernel") if k in mangled), mangled)
+            dtype = re.search(r"(bfloat16|__half)", mangled)
+            dims = re.findall(r"Li(\d+)E", mangled)
+            dense = re.search(r"Lb([01])E", mangled)
+            if dims:
+                name += (f"<{dtype.group(1).strip('_') if dtype else 'float'}, Dh {dims[0]}, "
+                         f"{'dense' if dense and dense.group(1) == '1' else 'flash'}>")
+            out.append([name, ""])
+        elif name and ("spill" in line or "Used" in line):
+            out[-1][1] += ("; " if out[-1][1] else "") + line.split(":")[-1].strip()
+    return [tuple(x) for x in out]
 
 
 def time_kernel_ms(pos, fl, ti, tj, r2, reps: int = 50) -> float:
@@ -366,9 +391,8 @@ def phase_attention_check(dev) -> dict:
         nbytes = 4.0 * B * H * S * Dh * 2 + (0 if bias is None else bias.numel() * 4)
         bound_ms, bound_by = attention_bound(flops, nbytes)
         mask = None if bias is None else bias.to(bf16)
-        # the kernel alone on the flattened heads (the bias read in place);
-        # multi_head_attention adds the layout copies around it
-        kernel = ((lambda: att._launch_dense(q, k, v, bias, heads=H)) if cuda
+        # the kernel alone on the (B, S, H, Dh) inputs (the bias read in place)
+        kernel = ((lambda: att._launch_dense(q4, k4, v4, bias)) if cuda
                   else (lambda: att.multi_head_attention(q4, k4, v4, bias=bias)))
         fields.update(
             shape=f"BH={B * H},S={S},T={S},Dh={Dh}",
@@ -379,6 +403,33 @@ def phase_attention_check(dev) -> dict:
             bound_ms=bound_ms, bound_by=bound_by)
         record(label, "dense_attention", fields)
     del q4, k4, v4, q, k, v
+
+    # the ViT's own inputs: q, k and v as slices of one packed (B, S, 3, H,
+    # Dh) qkv, row stride 3 H Dh, read in place by the kernel; timed through
+    # multi_head_attention and as the kernel alone
+    qkv = randn(B, S, 3, H, Dh)
+    q4, k4, v4 = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = att.fused_attention.launches
+    got = att.multi_head_attention(q4, k4, v4)
+    sync(dev)
+    if att.fused_attention.launches != before + (1 if cuda else 0):
+        raise AssertionError("packed qkv: multi_head_attention did not launch the dense kernel")
+    q, k, v = flat(q4), flat(k4), flat(v4)
+    want = att._reference_attention(q, k, v).reshape(B, H, S, Dh).permute(0, 2, 1, 3)
+    fields = check_attention("K4_packed_qkv", got, want, v, flash=False)
+    bound_ms, bound_by = attention_bound(4.0 * S * S * Dh * B * H, 4.0 * B * H * S * Dh * 2)
+    mha_ms = timed(lambda: att.multi_head_attention(q4, k4, v4), KERNEL_REPS)
+    kernel_ms = (timed(lambda: att._launch_dense(q4, k4, v4, None), KERNEL_REPS) if cuda
+                 else mha_ms)
+    fields.update(
+        shape=f"B={B},S={S},H={H},Dh={Dh},row_stride={q4.stride(1)}",
+        ms=kernel_ms, multi_head_attention_ms=mha_ms,
+        mha_over_kernel=mha_ms / kernel_ms,
+        library_ms=timed(lambda: F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in (q4, k4, v4))), KERNEL_REPS),
+        bound_ms=bound_ms, bound_by=bound_by)
+    record("K4_packed_qkv", "dense_attention", fields)
+    del qkv, q4, k4, v4, q, k, v
 
     # flash kernel (K2, K3): LightGlue's fullres verify batch, 2 x 256 pairs
     # x 4 heads at 2048 keypoints; kv_len 0, 1, 1500, 2048 among the rows

@@ -116,15 +116,22 @@ def library() -> ctypes.CDLL:
         p, i, d, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
         lib.mlis_tri_count.argtypes = [p, p, p, p, i, i, i, d, p, p]
         lib.mlis_tri_count.restype = ctypes.c_int
-        lib.mlis_flash_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        strides = ctypes.POINTER(ll)  # 12 element strides: (b, l, h) of q, k, v, out
+        lib.mlis_flash_attention.argtypes = [p, p, p, p, p, strides, i, i, i, i, i, i, p]
         lib.mlis_flash_attention.restype = ctypes.c_int
-        lib.mlis_dense_attention.argtypes = [p, p, p, p, i, ll, ll, ll, p, i, i, i, i, i, p]
+        lib.mlis_dense_attention.argtypes = [p, p, p, p, ll, ll, ll, p, strides, i, i, i, i, i, i,
+                                             p]
         lib.mlis_dense_attention.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def check(status: int, name: str) -> None:
-    """Raise if a C entry point reported a CUDA error after its launch."""
+    """Raise if a C entry point reported a CUDA error after its launch, or
+    (codes from 10000) a TMA tensor map that cuTensorMapEncodeTiled refused."""
+    if status >= 10000:
+        why = ("cuTensorMapEncodeTiled was not found" if status == 20000
+               else f"cuTensorMapEncodeTiled returned CUresult {status - 10000}")
+        raise RuntimeError(f"CUDA kernel {name}: no TMA tensor map ({why})")
     if status != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {status}")

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 from functools import lru_cache
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,25 +76,30 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
+                 use_kernel: Optional[bool] = None):
         super().__init__()
         self.dim, self.num_heads, self.dtype = dim, num_heads, dtype
+        self.use_kernel = use_kernel
         self.qkv = Dense(dim, 3 * dim, dtype=dtype)
         self.proj = Dense(dim, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, S, _ = x.shape
         qkv = self.qkv(x).reshape(B, S, 3, self.num_heads, self.dim // self.num_heads)
-        out = multi_head_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        # q, k and v are strided slices of the packed qkv: the kernels read
+        # them in place
+        out = multi_head_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                                   use_kernel=self.use_kernel)
         return self.proj(out.reshape(B, S, self.dim).to(self.dtype))
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ViTConfig):
+    def __init__(self, cfg: ViTConfig, use_kernel: Optional[bool] = None):
         super().__init__()
         self.dtype = cfg.dtype
         self.norm1 = LayerNorm(cfg.dim)
-        self.attn = Attention(cfg.dim, cfg.num_heads, cfg.dtype)
+        self.attn = Attention(cfg.dim, cfg.num_heads, cfg.dtype, use_kernel)
         self.ls1 = LayerScale(cfg.dim, cfg.layerscale_init)
         self.norm2 = LayerNorm(cfg.dim)
         self.mlp = Mlp(cfg.dim, int(cfg.dim * cfg.mlp_ratio), cfg.dtype)
@@ -147,9 +152,13 @@ def _interpolate_pos_embed(pos: torch.Tensor, grid: Tuple[int, int]) -> torch.Te
 class ViT(nn.Module):
     """DINOv2-style ViT. Input (B, H, W, 3) float (preprocessed); H and W
     must be multiples of ``patch_size``. Returns a dict with the cls,
-    register and patch tokens (float32) and the patch grid."""
+    register and patch tokens (float32) and the patch grid.
 
-    def __init__(self, cfg: ViTConfig):
+    ``use_kernel`` is the reference's ``use_pallas``: None runs the
+    attention kernels on CUDA tensors, False the plain attention on any
+    device."""
+
+    def __init__(self, cfg: ViTConfig, use_kernel: Optional[bool] = None):
         super().__init__()
         self.cfg = cfg
         c = cfg
@@ -159,7 +168,7 @@ class ViT(nn.Module):
         if c.num_register_tokens:
             self.register_tokens = nn.Parameter(torch.zeros(1, c.num_register_tokens, c.dim))
         for i in range(c.depth):
-            self.add_module(f"block{i}", Block(c))
+            self.add_module(f"block{i}", Block(c, use_kernel))
         self.norm = LayerNorm(c.dim)
         for p in (self.cls_token, self.pos_embed):
             nn.init.trunc_normal_(p, std=0.02)

@@ -19,7 +19,9 @@ of ``csrc/attention.cu`` (one kernel serves both Pallas kernels); on a CPU
 tensor it runs :func:`flash_attention_plain`, which repeats the arithmetic
 with a one-shot softmax, in slices of ``bh`` that keep the (S, T) float32
 scores under 256 MiB. Layouts are the JAX package's: (BH, S, Dh) here,
-(B, S, H, Dh) at :func:`flash_mha`.
+(B, S, H, Dh) at :func:`flash_mha`. The kernel itself takes (B, L, H, Dh)
+views with any strides that its TMA loads accept (:func:`check_views`), so
+neither wrapper copies q, k, v or the output on CUDA.
 """
 
 from __future__ import annotations
@@ -69,50 +71,74 @@ def flash_attention_plain(
     return out
 
 
-def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> None:
-    """Raise unless q (BH, S, Dh), k and v (BH, T, Dh) are what the CUDA
-    kernels take: one CUDA device, one dtype of DTYPE_CODES, Dh in
-    HEAD_DIMS, contiguous, 16-byte aligned."""
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
-        raise ValueError(f"{name}: q, k, v must be (BH, S, Dh) and (BH, T, Dh)")
-    BH, S, Dh = q.shape
-    if k.shape[0] != BH or k.shape[2] != Dh or v.shape != k.shape:
+def check_views(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> None:
+    """Raise unless q (B, S, H, Dh), k and v (B, T, H, Dh) are views the
+    CUDA kernels take: one CUDA device, one dtype of DTYPE_CODES, Dh in
+    HEAD_DIMS, B * H <= MAX_BH, the head axis contiguous, and every base
+    address and stride a multiple of 16 bytes (the TMA's rules). Nothing is
+    copied to make a view fit."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{name}: q, k, v must be (B, S, H, Dh) and (B, T, H, Dh) views")
+    B, S, H, Dh = q.shape
+    if k.shape[0] != B or tuple(k.shape[2:]) != (H, Dh) or v.shape != k.shape:
         raise ValueError(f"{name}: shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)} disagree")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: dtype must be one of float32, bfloat16, float16 for all "
                          f"three, got {q.dtype}, {k.dtype}, {v.dtype}")
     if Dh not in HEAD_DIMS:
         raise ValueError(f"{name}: head width {Dh} is not one of {HEAD_DIMS}")
-    if BH > MAX_BH:
-        raise ValueError(f"{name}: BH = {BH} exceeds {MAX_BH}")
+    if B * H > MAX_BH:
+        raise ValueError(f"{name}: B * H = {B * H} exceeds {MAX_BH}")
     for label, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name}: {label} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {label} must be contiguous")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: {label}'s head axis must be contiguous, strides {t.stride()}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {label} must be 16-byte aligned")
+        for d in range(3):
+            if t.shape[d] > 1 and (t.stride(d) <= 0 or t.stride(d) * t.element_size() % 16):
+                raise ValueError(f"{name}: {label}'s strides {t.stride()} must be positive "
+                                 f"multiples of 16 bytes")
+
+
+def _view_strides(t: torch.Tensor) -> list:
+    """(b, l, h) element strides of a (B, L, H, Dh) view; an axis of size 1
+    gets Dh, which every map of the kernels accepts."""
+    return [t.stride(d) if t.shape[d] > 1 else t.shape[-1] for d in range(3)]
+
+
+def prepare_launch(q, k, v, name):
+    """Check the views and allocate the (B, S, H, Dh) output; returns it and
+    the 12 strides of q, k, v and out as a ctypes array."""
+    check_views(q, k, v, name)
+    if k.shape[1] == 0:
+        raise ValueError(f"{name}: there are no keys (T = 0)")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    vals = [s for t in (q, k, v, out) for s in _view_strides(t)]
+    return out, (ctypes.c_longlong * 12)(*vals)
 
 
 def _launch_flash(q, k, v, kv_len) -> torch.Tensor:
+    """The flash kernel on (B, S, H, Dh) and (B, T, H, Dh) views; kv_len
+    (B * H,) int32 or None; returns a contiguous (B, S, H, Dh) output."""
     from mlis_tpu_torch import _build
 
-    check_qkv(q, k, v, "flash_attention")
-    BH, S, Dh = q.shape
+    out, strides = prepare_launch(q, k, v, "flash_attention")
+    B, S, H, Dh = q.shape
     T = k.shape[1]
     if kv_len is None:
-        kv_len = torch.full((BH,), T, dtype=torch.int32, device=q.device)
-    if kv_len.shape != (BH,) or kv_len.dtype != torch.int32 or kv_len.device != q.device \
+        kv_len = torch.full((B * H,), T, dtype=torch.int32, device=q.device)
+    if kv_len.shape != (B * H,) or kv_len.dtype != torch.int32 or kv_len.device != q.device \
             or not kv_len.is_contiguous():
-        raise ValueError(f"flash_attention: kv_len must be a contiguous ({BH},) int32 tensor "
+        raise ValueError(f"flash_attention: kv_len must be a contiguous ({B * H},) int32 tensor "
                          f"on {q.device}")
-    out = torch.empty_like(q)
-    if BH == 0 or S == 0:
+    if B * H == 0 or S == 0:
         return out
     status = _build.library().mlis_flash_attention(
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(kv_len.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), DTYPE_CODES[q.dtype], BH, S, T, Dh,
+        ctypes.c_void_p(out.data_ptr()), strides, DTYPE_CODES[q.dtype], B, H, S, T, Dh,
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     _build.check(status, "flash_attention")
@@ -131,8 +157,8 @@ def flash_attention(
     run :func:`flash_attention_plain`."""
     if kv_len is not None:
         kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
-    if q.device.type == "cuda":
-        return _launch_flash(q, k, v, kv_len)
+    if q.device.type == "cuda":  # (BH, S, Dh) is the (B, S, H, Dh) case H = 1
+        return _launch_flash(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2), kv_len).squeeze(2)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_len)
     raise ValueError(f"flash_attention has no path for device {q.device}")
@@ -148,15 +174,19 @@ def flash_mha(
     kv_valid: Optional[torch.Tensor] = None,  # (B, T) prefix-valid mask
 ) -> torch.Tensor:
     """Multi-head wrapper over :func:`flash_attention`: each batch row's key
-    count, the length of its valid prefix, is repeated over the heads."""
+    count, the length of its valid prefix, is repeated over the heads. On
+    CUDA the kernel reads the (B, L, H, Dh) views in place and returns its
+    (B, S, H, Dh) output; the plain version works on (B * H, L, Dh) copies."""
     B, S, H, Dh = q.shape
     T = k.shape[1]
+    lens = None
+    if kv_valid is not None:
+        lens = kv_valid.sum(1, dtype=torch.int32).repeat_interleave(H)
+    if q.device.type == "cuda":
+        return _launch_flash(q, k, v, None if lens is None else lens.to(q.device).contiguous())
 
     def flat(x, L):
         return x.permute(0, 2, 1, 3).reshape(B * H, L, Dh).contiguous()
 
-    lens = None
-    if kv_valid is not None:
-        lens = kv_valid.sum(1, dtype=torch.int32).repeat_interleave(H)
     out = flash_attention(flat(q, S), flat(k, T), flat(v, T), lens)
     return out.reshape(B, H, S, Dh).permute(0, 2, 1, 3)

@@ -234,3 +234,59 @@ def test_wrappers_refuse_other_devices():
         tflash.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="no path"):
         tatt.fused_attention(q, q, q)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_packed_qkv_slices_through_multi_head_attention(bf16):
+    """The ViT's inputs: q, k, v as strided slices of one packed
+    (B, S, 3, H, Dh) qkv (row stride 3 H Dh), S = 70 (not a multiple of the
+    kernels' 64-key tile or 128-row block); the output is (B, S, H, Dh)."""
+    rng = np.random.default_rng(7)
+    B, S, H, Dh = 2, 70, 3, 16
+    qkv = _np(rng, (B, S, 3, H, Dh))
+    jq = _to_jax(qkv, bf16)
+    want = jatt.multi_head_attention(jq[:, :, 0], jq[:, :, 1], jq[:, :, 2], use_pallas=True)
+    tq = _to_torch(qkv, bf16)
+    q, k, v = tq[:, :, 0], tq[:, :, 1], tq[:, :, 2]
+    assert q.stride(1) == 3 * H * Dh and not q.is_contiguous()
+    got = tatt.multi_head_attention(q, k, v)
+    assert got.shape == (B, S, H, Dh)
+    if bf16:
+        # one bf16 ulp is up to 2^-7 of a value just above a power of two
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=2.0**-7, atol=1e-6)
+    else:
+        _close(got, want, False)
+
+
+def test_flash_mha_strided_views_with_prefix_mask():
+    """flash_mha on packed-qkv slices with a prefix-valid key mask per batch
+    row (150 keys, 97 and none valid), against the Pallas flash kernel."""
+    rng = np.random.default_rng(8)
+    B, L, H, Dh = 3, 150, 2, 16
+    qkv = _np(rng, (B, L, 3, H, Dh))
+    valid = np.arange(L)[None, :] < np.array([[L], [97], [0]])
+    jq = jnp.asarray(qkv)
+    want = np.asarray(jflash.flash_mha(jq[:, :, 0], jq[:, :, 1], jq[:, :, 2],
+                                       kv_valid=jnp.asarray(valid)))
+    tq = torch.from_numpy(qkv)
+    got = tflash.flash_mha(tq[:, :, 0], tq[:, :, 1], tq[:, :, 2],
+                           kv_valid=torch.from_numpy(valid)).numpy()
+    assert got.shape == (B, L, H, Dh)
+    np.testing.assert_allclose(got, want, atol=F32_ATOL)
+    assert not got[2].any()
+
+
+def test_use_kernel_false_runs_the_plain_version(monkeypatch):
+    """use_kernel=False mirrors the reference's use_pallas=False: the plain
+    attention at every size, a long unbiased problem included (no dispatch
+    to flash)."""
+    rng = np.random.default_rng(9)
+    B, S, H, Dh = 1, 1100, 2, 16
+    q, k, v = (_np(rng, (B, S, H, Dh)) for _ in range(3))
+    calls = []
+    monkeypatch.setattr(tatt, "flash_mha", lambda *a, **kw: calls.append(1))
+    got = tatt.multi_head_attention(*(torch.from_numpy(a) for a in (q, k, v)), use_kernel=False)
+    assert calls == []
+    want = jatt.multi_head_attention(*(jnp.asarray(a) for a in (q, k, v)), use_pallas=False)
+    _close(got, want, False)

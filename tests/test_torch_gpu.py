@@ -194,6 +194,123 @@ def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_attention(q, q, q, torch.zeros(2, 64, 63, device=cuda))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("Dh", [16, 32, 64])
+@pytest.mark.parametrize("S,T", [(1, 1), (17, 17), (530, 530), (1000, 2047), (2047, 1000),
+                                 (1, 2047)])
+def test_wgmma_kernels_across_shapes(cuda, dtype, Dh, S, T):
+    """Both tensor-core kernels at every head width, single rows, ragged
+    tiles on both axes, and kv_len 0, 1, T and a draw among the rows."""
+    from mlis_tpu_torch.ops.attention import _reference_attention, fused_attention
+    from mlis_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    BH = 4
+    q, k, v = _attn_inputs(cuda, [(BH, S, Dh), (BH, T, Dh), (BH, T, Dh)], dtype, S + T + Dh)
+    lens = [0, 1, T, max(1, (T * 2) // 3)]
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = (flash_attention.launches, fused_attention.launches)
+    got_f = flash_attention(q, k, v, kv)
+    got_d = fused_attention(q, k, v)
+    assert (flash_attention.launches, fused_attention.launches) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    _assert_attention_close(got_f, flash_attention_plain(q, k, v, kv), v, dtype, flash=True)
+    _assert_attention_close(got_d, _reference_attention(q, k, v), v, dtype, flash=False)
+    assert not got_f[0].float().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("S", [530, 1370])
+def test_packed_qkv_views_are_read_in_place(cuda, dtype, S):
+    """The ViT's q, k, v: slices of one packed (B, S, 3, H, Dh) tensor,
+    row stride 3 H Dh. 530 tokens go to the dense kernel, 1370 to the
+    flash kernel; the output is the kernel's contiguous (B, S, H, Dh)."""
+    from mlis_tpu_torch.ops.attention import _plain_multi_head, fused_attention, multi_head_attention
+    from mlis_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, Dh = 2, 3, 64
+    (qkv,) = _attn_inputs(cuda, [(B, S, 3, H, Dh)], dtype, S)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert q.stride(1) == 3 * H * Dh and not q.is_contiguous()
+    before = (flash_attention.launches, fused_attention.launches)
+    got = multi_head_attention(q, k, v)
+    flash = S == 1370
+    assert (flash_attention.launches, fused_attention.launches) == (
+        before[0] + flash, before[1] + (not flash))
+    assert got.shape == (B, S, H, Dh) and got.is_contiguous()
+    torch.cuda.synchronize()
+    if flash:
+        flat = [x.permute(0, 2, 1, 3).reshape(B * H, S, Dh).contiguous() for x in (q, k, v)]
+        want = flash_attention_plain(*flat).reshape(B, H, S, Dh).permute(0, 2, 1, 3)
+    else:
+        want = _plain_multi_head(q, k, v, None)
+    _assert_attention_close(got, want, v, dtype, flash=flash)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_mha_views_with_a_prefix_mask(cuda, dtype):
+    """flash_mha on strided views with a prefix-valid key mask per batch row
+    (L = 1100, not a multiple of the 64-key tile or the 128-row block)."""
+    from mlis_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain, flash_mha
+
+    B, L, H, Dh = 3, 1100, 2, 64
+    (qkv,) = _attn_inputs(cuda, [(B, L, 3, H, Dh)], dtype, 11)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    valid = torch.arange(L, device=cuda)[None, :] < torch.tensor([[L], [700], [0]], device=cuda)
+    before = flash_attention.launches
+    got = flash_mha(q, k, v, kv_valid=valid)
+    assert flash_attention.launches == before + 1 and got.shape == (B, L, H, Dh)
+    torch.cuda.synchronize()
+    flat = [x.permute(0, 2, 1, 3).reshape(B * H, L, Dh).contiguous() for x in (q, k, v)]
+    lens = valid.sum(1, dtype=torch.int32).repeat_interleave(H)
+    want = flash_attention_plain(*flat, lens).reshape(B, H, L, Dh).permute(0, 2, 1, 3)
+    _assert_attention_close(got, want, v, dtype, flash=True)
+    assert not got[2].float().any()
+
+
+def test_wrappers_raise_on_misaligned_views(cuda):
+    """TMA takes 16-byte aligned bases and strides only; the wrappers raise
+    instead of copying."""
+    from mlis_tpu_torch.ops.attention import multi_head_attention
+    from mlis_tpu_torch.ops.flash_attention import flash_mha
+
+    wide = torch.zeros(2, 64, 1, 20, device=cuda, dtype=torch.bfloat16)
+    q = wide[..., :16]  # row stride 40 bytes
+    ok = torch.zeros(2, 64, 1, 16, device=cuda, dtype=torch.bfloat16)
+    shifted = torch.zeros(1 + ok.numel(), device=cuda, dtype=torch.bfloat16)[1:].view(ok.shape)
+    for fn in (multi_head_attention, flash_mha):
+        with pytest.raises(ValueError, match="multiples of 16 bytes"):
+            fn(q, ok, ok)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(ok, shifted, ok)
+
+
+def test_vit_plain_attention_switch(cuda):
+    """use_kernel=False keeps every block's attention off both kernels;
+    the default runs the dense kernel once per block."""
+    from mlis_tpu_torch.models.vit import ViT, ViTConfig
+    from mlis_tpu_torch.ops.attention import fused_attention
+    from mlis_tpu_torch.ops.flash_attention import flash_attention
+
+    cfg = ViTConfig.tiny_test()
+    torch.manual_seed(0)
+    plain = ViT(cfg, use_kernel=False).to(cuda)
+    kernel = ViT(cfg).to(cuda)
+    kernel.load_state_dict(plain.state_dict())
+    x = torch.rand(2, 112, 112, 3, device=cuda)
+    before = (flash_attention.launches, fused_attention.launches)
+    with torch.no_grad():
+        want = plain(x)
+        assert (flash_attention.launches, fused_attention.launches) == before
+        got = kernel(x)
+    assert (flash_attention.launches, fused_attention.launches) == (before[0],
+                                                                    before[1] + cfg.depth)
+    # bf16 activations through two blocks: the kernel's and the plain
+    # attention round differently, within a few bf16 ulps of the tokens
+    torch.testing.assert_close(got["patches"], want["patches"], rtol=2.0**-5, atol=2.0**-5)
+
+
 def test_tiny_gate_card_matches_cpu(cuda):
     """A tiny random-weight gate, float32 with TF32 off, on both devices."""
     from mlis_tpu_torch.gating.full_gate import FullGatePipeline

@@ -75,3 +75,21 @@ def test_vit_configs_match_flax():
                   "num_register_tokens", "layerscale_init"):
             assert getattr(j, f) == getattr(t, f), (name, f)
         assert t.dtype == torch.bfloat16
+
+
+def test_vit_plain_attention_switch_matches_flax():
+    """ViT(use_kernel=False) against the flax ViT built with
+    use_pallas=False, as load_encoder and the trainers build it."""
+    rng = np.random.default_rng(3)
+    cfg = jvit.ViTConfig.tiny_test(dtype=jnp.float32, layerscale_init=0.5)
+    x = rng.normal(size=(2, 98, 112, 3)).astype(np.float32)
+    ref = jvit.ViT(cfg, use_pallas=False)
+    params = ref.init(jax.random.PRNGKey(3), jnp.asarray(x))
+    want = ref.apply(params, jnp.asarray(x))
+    port = tvit.ViT(tvit.ViTConfig.tiny_test(dtype=torch.float32), use_kernel=False)
+    assert all(getattr(port, f"block{i}").attn.use_kernel is False for i in range(cfg.depth))
+    port.load_state_dict(from_jax_params(jax.device_get(params)), strict=True)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x))
+    for key in ("cls", "patches"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), atol=2e-5)
