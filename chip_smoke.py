@@ -13,11 +13,7 @@ Phases, one line each as they end:
    the card: the 19,163-pose cloud, a clustered cloud with pairs at r and
    r +- 1e-9, and that cloud again through the full tile grid (the launch
    of the JAX package's full-grid kernel K6); counts must be identical;
-3. the main path as bench.py's default mode runs it: the sweep through
-   ``gating.integration.analyze``, then ``FullGatePipeline.process`` on
-   128 mono8 keyframes at 270x360 with the shipped MixVPR and LightGlue
-   checkpoints (one warm-up, three timed runs, one more under
-   torch.profiler for the device time per stage and kernel);
+   its bound counts FP64 issue slots, beside the data sheet's FLOP figure;
 2b. the attention kernels (csrc/attention.cu) against their plain
    versions on the card, bf16 inputs from a seed: the dense kernel (TPU
    kernels K4/K5) at the ViT-B/14 shape of path A, without a bias and
@@ -44,6 +40,19 @@ Phases, one line each as they end:
 6. path B, the fullres gate with every keypoint matched: 128 keyframes
    at 540x720, SuperPoint at 2048 keypoints, the fullres LightGlue, its
    18 attentions per verify batch on the flash kernel.
+7. the decision-quality harness, bench.py quality2's LightGlue row: v2
+   GT scenes (4 floors x 32 places x 2 passes, 270x360) drawn and rendered
+   on the card for seeds 0, 1 and 2, ``eval.quality.run_gate_quality``
+   with the parallax-trained tiny encoder and LightGlue (top-16 at 0.30,
+   512 keypoints, verify batches of 256), the no-floor-gate ablation and
+   the pixel / trained_vpr_v2 retrieval rows on seed 0; it fails on a
+   fallback encoder or checkpoint, on any kernel launch (the harness's ViT
+   runs plain attention), on a 3-seed mean F1 below 0.75 or precision
+   below 0.9, or on an ablation F1 not below the gated one. Then one
+   small scene drawn once and rendered on the card and on the CPU, and
+   the harness on both with the same RANSAC draws, in float32 and with
+   the shipped bf16 models, held to the renderer's parity rule and to the
+   harness's band rule for each dtype.
 Phases 5 and 6 run like phase 3 (warm-up, three timed runs, one
 profiled run), with every launch counter set to 0 before each run.
 
@@ -67,6 +76,10 @@ import numpy as np
 import torch
 
 H100_FP64_FLOPS = 34e12  # H100 SXM, FP64 outside the tensor cores (NVIDIA data sheet)
+# FP64 instructions per second: the data-sheet rate counts each FMA as two
+# operations (132 SMs x 64 FP64 lanes x 2 x ~1.98 GHz); K1's exact arithmetic
+# may not contract (-fmad=false), so each DADD, DMUL or DSETP takes a slot
+H100_FP64_ISSUE = H100_FP64_FLOPS / 2
 H100_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (NVIDIA data sheet)
 H100_HBM_BYTES_S = 3.35e12
 RADIUS, MIN_GAP = 2.0, 100
@@ -269,16 +282,20 @@ def phase_kernel_check(dev) -> dict:
         # the loop bounds skip pairs with j - i < min_gap, so every case
         # (the full tile grid too) computes the index-valid pairs only
         pairs = pw.index_valid_pairs(pos.shape[0], MIN_GAP)
+        # 9 FP64 instructions a pair: 3 DADD (differences), 3 DMUL, 2 DADD
+        # (the sum), 1 DSETP (d^2 <= r^2)
         ops = 9 * pairs
         nbytes = pos.shape[0] * (24 + 4) + 8 * int(ti.numel()) + 16
-        bound_ms = max(ops / H100_FP64_FLOPS, nbytes / H100_HBM_BYTES_S) * 1e3
-        fields.update(pair_distances=pairs, bound_ms=f"{bound_ms:.4f}")
+        t_ops, t_bytes = ops / H100_FP64_ISSUE, nbytes / H100_HBM_BYTES_S
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        flop_bound_ms = max(ops / H100_FP64_FLOPS, t_bytes) * 1e3  # the data-sheet figure
+        fields.update(pair_distances=pairs, bound_ms=f"{bound_ms:.4f}",
+                      flop_bound_ms=f"{flop_bound_ms:.4f}")
         if name.startswith("a_"):
             stats = {"sweep_counts": got,
                      "ms": float(fields.get("kernel_ms", "nan")), "plain_ms": plain_ms,
                      "bound_ms": bound_ms,
-                     "bound_by": "operations" if ops / H100_FP64_FLOPS >= nbytes / H100_HBM_BYTES_S
-                     else "bytes"}
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         print("  K1 " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
     stats["max_abs_err"] = max_err
     log("2 K1 vs plain", t0, identical=True, launches_so_far=pw.tri_count.launches)
@@ -531,17 +548,23 @@ STAGES = ("gate.detect", "gate.encode", "gate.retrieval", "lightglue.match", "ep
 
 
 def profile_gate(dev, pipe, inputs, gen, best_wall: float, encode_batch_size: int = 128) -> None:
-    """One more gate run under torch.profiler: device time per stage range
-    and per kernel, and the device's busy share of the run."""
+    """One more gate run under torch.profiler (see :func:`profile_run`)."""
+    images, timestamps, floors, K = inputs
+    profile_run(dev, lambda: pipe.process(images, timestamps, floors, K,
+                                          encode_batch_size=encode_batch_size, generator=gen),
+                best_wall)
+
+
+def profile_run(dev, run, best_wall: float) -> None:
+    """``run()`` once under torch.profiler: device time per stage range and
+    per kernel, and the device's busy share of the run's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    images, timestamps, floors, K = inputs
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.process(images, timestamps, floors, K, encode_batch_size=encode_batch_size,
-                     generator=gen)
+        run()
         sync(dev)
         wall = time.perf_counter() - t0
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -796,6 +819,206 @@ def phase_card_vs_cpu(dev) -> None:
         max_inlier_diff=int(np.abs(dev_inl - cpu_inl).max()) if len(pa) else 0)
 
 
+# -- phase 7: the decision-quality harness ---------------------------------------------
+
+# bench.py quality2's LightGlue row (bench.py:761-790): top-16 retrieval at
+# 0.30, verify batches of 256, the parallax-trained encoder and matcher
+QUALITY = dict(encoder="trained_vpr_v2", top_k=16, similarity_threshold=0.30,
+               verify_batch=VERIFY_BATCH)
+QUALITY_SEEDS = (0, 1, 2)
+QUALITY_F1_MIN, QUALITY_PRECISION_MIN = 0.75, 0.9  # 3-seed means the phase must reach
+QUALITY_SMALL = dict(n_floors=2, n_places=4, hw=(135, 180))  # the card-vs-CPU scene
+# the band rule of tests/test_torch_quality.py (eval/quality.py
+# decision_drift): float32 models hold the issue's bands, confident matches
+# within 1 and inliers within 3 past the confident cut; the shipped bf16
+# models move keypoints across the top-k cut, so confident matches within 3
+# and inliers reported, not bounded
+QUALITY_BANDS = {torch.float32: dict(conf_band=1, inlier_band=3, bound_inliers=True),
+                 torch.bfloat16: dict(conf_band=3, inlier_band=3, bound_inliers=False)}
+PIXEL_SHARE = 0.99  # renders on two devices: share of pixels within one uint8 level
+
+
+def check_quality_labels(out: dict, what: str) -> None:
+    """No silent fallback to the pixel encoder or the homography matcher."""
+    if out["encoder"] != "trained_vpr_v2" or out["weights"] != "lightglue_parallax_sp.npz":
+        raise AssertionError(f"{what}: ran encoder {out['encoder']!r} with weights "
+                             f"{out['weights']!r}, not trained_vpr_v2 + lightglue_parallax_sp.npz")
+
+
+def compare_scenes(a, b, what: str) -> float:
+    """The renderer's parity rule: metadata exact, pixels within one level."""
+    for field in ("floors", "timestamps", "K"):
+        x, y = getattr(a, field), getattr(b, field)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: {field} differs")
+    if a.gt_pairs != b.gt_pairs or a.aliased_pairs != b.aliased_pairs:
+        raise AssertionError(f"{what}: GT or aliased pairs differ")
+    if a.images.shape != b.images.shape or a.images.dtype != b.images.dtype:
+        raise AssertionError(f"{what}: images {a.images.shape} vs {b.images.shape}")
+    diff = np.abs(a.images.astype(np.int16) - b.images.astype(np.int16))
+    share = float((diff <= 1).mean())
+    if share < PIXEL_SHARE:
+        raise AssertionError(f"{what}: only {share:.6f} of pixels within one level")
+    return share
+
+
+def compare_decisions(a: dict, b: dict, bands: dict, what: str) -> dict:
+    """The harness's band rule on two runs' pairs: the drift is reported
+    before any violation raises."""
+    from mlis_tpu_torch.eval.quality import decision_drift
+
+    for key in ("total_candidates", "verified"):
+        if a[key] != b[key]:
+            raise AssertionError(f"{what}: {key} {a[key]} vs {b[key]}")
+    stats, broken = decision_drift(a["pairs"], b["pairs"], **bands)
+    print(f"  {what}: " + " ".join(f"{k}={v}" for k, v in stats.items()), flush=True)
+    for x, y in broken:
+        print(f"  outside the band rule: {x} vs {y}", flush=True)
+    if broken:
+        raise AssertionError(f"{what}: {len(broken)} pairs break the band rule")
+    return stats
+
+
+def phase_quality(dev) -> None:
+    """bench.py quality2's LightGlue row on v2 scenes drawn on the device: 3
+    seeds, the no-floor-gate ablation and the retrieval rows on seed 0."""
+    from mlis_tpu_torch.eval import quality as tq
+    from mlis_tpu_torch.train.pretrain_vpr import load_encoder
+    from mlis_tpu_torch.weights import default_parallax_matcher_checkpoint
+
+    t0 = time.perf_counter()
+    cuda = dev.type == "cuda"
+    # the CPU rehearsal cuts the scene's scale, never its shapes
+    size = dict(n_floors=4, n_places=32, hw=(270, 360)) if cuda else QUALITY_SMALL
+    weights = default_parallax_matcher_checkpoint()
+    torch.manual_seed(0)  # RANSAC's draws come from the global generator on the device
+
+    def scene(seed):
+        tr = time.perf_counter()
+        sc = tq.make_quality_scene_v2(generator=torch.Generator(device=dev).manual_seed(seed),
+                                      device=dev, **size)
+        return sc, time.perf_counter() - tr
+
+    def gate(sc, **kw):
+        out = tq.run_gate_quality("trained", scene=sc, weights_path=weights, device=dev,
+                                  **{**QUALITY, **kw})
+        check_quality_labels(out, "phase 7")
+        return out
+
+    scenes = {}
+    scenes[0], render_s = scene(0)
+    sc0 = scenes[0]
+    if sc0.images.shape != (2 * size["n_floors"] * size["n_places"], *size["hw"]) or \
+            len(sc0.gt_pairs) != size["n_floors"] * size["n_places"]:
+        raise AssertionError(f"phase 7: scene of shape {sc0.images.shape}, "
+                             f"{len(sc0.gt_pairs)} GT pairs")
+    log("7 setup", t0, scene=f"{size['n_floors']}x{size['n_places']}x2", hw=size["hw"],
+        first_render_s=f"{render_s:.4f}", weights=weights.rsplit("/", 1)[-1],
+        protocol=json.dumps(QUALITY, separators=(",", ":")))
+    gate(sc0)  # warm-up: cuDNN, cuBLAS and allocator set-up stay out of the timed runs
+
+    reset_launch_counts()  # counts from here on are the harness's
+    runs, calls = {}, {}
+    for seed in QUALITY_SEEDS:
+        t0 = time.perf_counter()
+        if seed not in scenes:
+            scenes[seed], render_s = scene(seed)
+        tc = time.perf_counter()
+        out = runs[seed] = gate(scenes[seed])
+        calls[seed] = time.perf_counter() - tc
+        log(f"7 seed {seed}", t0, f1=out["f1"], precision=out["precision"],
+            recall=out["recall"], retrieval_recall=out["retrieval_recall"],
+            candidates=out["total_candidates"], verified=out["verified"],
+            accepted=out["geometrically_valid"], gate_s=f"{out['elapsed_s']:.4f}",
+            pairs_per_s=f"{out['total_candidates'] / out['elapsed_s']:.1f}",
+            render_s=f"{render_s:.4f}", harness_call_s=f"{calls[seed]:.4f}")
+    if cuda:
+        # the whole harness call (verifier and encoder set-up, the gate, the
+        # retrieval-recall encode) for seed 0 under the profiler
+        profile_run(dev, lambda: gate(sc0), calls[0])
+    t0 = time.perf_counter()
+    no_gate = gate(sc0, floor_gate=False)
+    log("7 no floor gate, seed 0", t0, f1=no_gate["f1"], precision=no_gate["precision"],
+        recall=no_gate["recall"], candidates=no_gate["total_candidates"],
+        verified=no_gate["verified"], accepted=no_gate["geometrically_valid"],
+        gate_s=f"{no_gate['elapsed_s']:.4f}")
+    t0 = time.perf_counter()
+    encs = {"pixel": tq._pixel_encoder,
+            "trained_vpr_v2": load_encoder("checkpoints/vpr_tiny_v2.npz", device=dev)}
+    if encs["trained_vpr_v2"] is None:
+        raise AssertionError("phase 7: checkpoints/vpr_tiny_v2.npz is missing")
+    rr = {name: tq.retrieval_metrics(sc0, e, top_k=QUALITY["top_k"],
+                                     threshold=QUALITY["similarity_threshold"], device=dev)
+          for name, e in encs.items()}
+    counts = launch_counts()
+    log("7 retrieval, seed 0", t0, **{f"{name}": json.dumps(m, separators=(",", ":"))
+                                      for name, m in rr.items()})
+
+    f1s = [runs[s]["f1"] for s in QUALITY_SEEDS]
+    precs = [runs[s]["precision"] for s in QUALITY_SEEDS]
+    rows = {
+        "f1_trained": round(float(np.mean(f1s)), 3),
+        "f1_trained_min": round(float(np.min(f1s)), 3),
+        "precision_trained": round(float(np.mean(precs)), 3),
+        "recall_trained": round(float(np.mean([runs[s]["recall"] for s in QUALITY_SEEDS])), 3),
+        "f1_no_floor_gate": round(no_gate["f1"], 3),
+        "precision_no_floor_gate": round(no_gate["precision"], 3),
+        "rr_pixel": round(rr["pixel"]["retrieval_recall"], 3),
+        "rr_trained_vpr_v2": round(rr["trained_vpr_v2"]["retrieval_recall"], 3),
+    }
+    log("7 quality2", time.perf_counter(), rows=json.dumps(rows, separators=(",", ":")),
+        mean_f1=float(np.mean(f1s)), mean_precision=float(np.mean(precs)),
+        launches=json.dumps(counts, separators=(",", ":")))
+    if any(counts.values()):
+        raise AssertionError(f"phase 7: the harness launched a kernel: {counts} (its ViT runs "
+                             "plain attention and its matcher stays below the flash size)")
+    if cuda and (np.mean(f1s) < QUALITY_F1_MIN or np.mean(precs) < QUALITY_PRECISION_MIN):
+        raise AssertionError(f"phase 7: mean F1 {np.mean(f1s)} (needs {QUALITY_F1_MIN}), mean "
+                             f"precision {np.mean(precs)} (needs {QUALITY_PRECISION_MIN})")
+    if cuda and no_gate["f1"] >= runs[0]["f1"]:
+        raise AssertionError(f"phase 7: F1 without the floor gate {no_gate['f1']} is not below "
+                             f"the gated {runs[0]['f1']}")
+
+
+def phase_quality_card_vs_cpu(dev) -> None:
+    """One torch draw of a small v2 scene rendered on the card and on the
+    CPU, then the harness on both with the same RANSAC draws, with float32
+    and with the shipped bf16 models."""
+    from mlis_tpu_torch.eval import quality as tq
+    from mlis_tpu_torch.gating.full_gate import _gate_compact
+    from mlis_tpu_torch.weights import default_parallax_matcher_checkpoint
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    draws = tq.draw_quality_scene_v2(seed=0, device=cpu, **QUALITY_SMALL)
+    scenes = {d: tq.render_quality_scene_v2(draws.to(d), **QUALITY_SMALL) for d in {dev, cpu}}
+    share = compare_scenes(scenes[dev], scenes[cpu], "phase 7 renders, card vs cpu")
+    sc = scenes[cpu]
+    # RANSAC's draws, one block per survivor of the gate's own retrieval
+    enc, _ = tq._encoder_for(QUALITY["encoder"], cpu)
+    _, _, (total, rejected) = _gate_compact(
+        enc(torch.as_tensor(sc.images)), torch.as_tensor(sc.timestamps.astype(np.float32)),
+        torch.as_tensor(sc.floors.astype(np.int64)), k=QUALITY["top_k"],
+        threshold=QUALITY["similarity_threshold"], min_time_gap=10.0, strict=True)
+    u = torch.rand((total - rejected, 512, 8), generator=torch.Generator().manual_seed(0))
+    kw = dict(QUALITY, max_keypoints=128, verify_batch=64, return_pairs=True, scene=sc,
+              weights_path=default_parallax_matcher_checkpoint(), ransac_uniforms=u)
+    fields = {}
+    for dtype, bands in QUALITY_BANDS.items():
+        name = str(dtype).removeprefix("torch.")
+        out = {d: tq.run_gate_quality("trained", model_dtype=dtype, device=d, **kw)
+               for d in {dev, cpu}}
+        for o in out.values():
+            check_quality_labels(o, "phase 7 card vs cpu")
+        drift = compare_decisions(out[dev], out[cpu], bands, f"phase 7 harness {name}, card vs cpu")
+        fields.update({f"{name}_accepted_card": out[dev]["geometrically_valid"],
+                       f"{name}_accepted_cpu": out[cpu]["geometrically_valid"],
+                       **{f"{name}_{k}": v for k, v in drift.items()}})
+    log("7 card vs cpu", t0, pixels_within_one_level=share,
+        pixels_equal=float((scenes[dev].images == scenes[cpu].images).mean()),
+        candidates=total, verified=total - rejected, **fields)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -817,6 +1040,8 @@ def main() -> int:
         phase_card_vs_cpu(dev)
         path_a = phase_path_a(dev, args)
         path_b = phase_path_b(dev, args)
+        phase_quality(dev)
+        phase_quality_card_vs_cpu(dev)
     signal.alarm(0)
     print(f"[total] {time.perf_counter() - t_all:.3f}s", flush=True)
     if dev.type != "cuda":

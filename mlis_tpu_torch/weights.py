@@ -87,6 +87,13 @@ def default_fullres_matcher_checkpoint() -> Optional[str]:
     return shipped_checkpoint("lightglue_homog_sp_fullres.npz") or default_matcher_checkpoint()
 
 
+def default_parallax_matcher_checkpoint() -> Optional[str]:
+    """The LightGlue checkpoint trained on layered parallax pairs
+    (``lightglue_parallax_sp.npz``, the v2 quality scene's two-view
+    distribution), else the homography-trained default."""
+    return shipped_checkpoint("lightglue_parallax_sp.npz") or default_matcher_checkpoint()
+
+
 def default_mixvpr_checkpoint() -> Optional[str]:
     return shipped_checkpoint("vpr_mixvpr.npz")
 

@@ -197,6 +197,8 @@ def test_port_runs_without_jax_or_mlis_tpu():
         import mlis_tpu_torch.ops.attention, mlis_tpu_torch.ops.flash_attention
         import mlis_tpu_torch.ops.pooling, mlis_tpu_torch.models.vit
         import mlis_tpu_torch.models.cricavpr, mlis_tpu_torch.gating.place_recognition
+        import mlis_tpu_torch.eval.quality, mlis_tpu_torch.eval.semantic_eval
+        import mlis_tpu_torch.train.matcher_trainer, mlis_tpu_torch.train.pretrain_vpr
         rng = np.random.default_rng(0)
         pos = rng.normal(size=(700, 3)) * 3
         fl = rng.integers(1, 4, 700)
@@ -205,6 +207,9 @@ def test_port_runs_without_jax_or_mlis_tpu():
         from mlis_tpu_torch.models.vit import ViT, ViTConfig
         toks = ViT(ViTConfig.tiny_test(dtype=torch.float32))(torch.rand(1, 98, 98, 3))
         assert toks["patches"].shape == (1, 49, 64)
+        from mlis_tpu_torch.eval.quality import make_quality_scene_v2
+        scene = make_quality_scene_v2(n_floors=2, n_places=2, hw=(64, 96), device="cpu")
+        assert scene.images.shape == (8, 64, 96) and len(scene.gt_pairs) == 4
         assert not any(m == "jax" or m.startswith(("jax.", "mlis_tpu.")) or m == "mlis_tpu"
                        for m, v in sys.modules.items() if v is not None)
         print("ok")
