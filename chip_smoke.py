@@ -21,10 +21,12 @@ Phases, one line each as they end:
    slices of a packed qkv (through multi_head_attention and alone); the
    flash kernel (K2/K3)
    at LightGlue's fullres shape of path B with kv_len 0, 1, 1500 and
-   2048 among its rows, a ragged S != T case, K3's size S = T = 1280, and
-   a 1370-token ViT sequence through multi_head_attention; each with its
-   error and tolerance, its time, the plain version's, the
-   scaled_dot_product_attention yardstick's, and its bound;
+   2048 among its rows, a ragged S != T case, K3's size S = T = 1280, a
+   1370-token ViT sequence through multi_head_attention, and path C's
+   shapes (64 images x 12 heads at SALAD's 1565 and AnyLoc's 1370 tokens
+   on the slices of a packed qkv); each with its error and tolerance, its
+   time, the plain version's, the scaled_dot_product_attention
+   yardstick's, and its bound;
 3. the main path as bench.py's default mode runs it: the sweep through
    ``gating.integration.analyze``, then ``FullGatePipeline.process`` on
    128 mono8 keyframes at 270x360 with the shipped MixVPR and LightGlue
@@ -40,25 +42,40 @@ Phases, one line each as they end:
 6. path B, the fullres gate with every keypoint matched: 128 keyframes
    at 540x720, SuperPoint at 2048 keypoints, the fullres LightGlue, its
    18 attentions per verify batch on the flash kernel.
-7. the decision-quality harness, bench.py quality2's LightGlue row: v2
-   GT scenes (4 floors x 32 places x 2 passes, 270x360) drawn and rendered
-   on the card for seeds 0, 1 and 2, ``eval.quality.run_gate_quality``
-   with the parallax-trained tiny encoder and LightGlue (top-16 at 0.30,
-   512 keypoints, verify batches of 256), the no-floor-gate ablation and
-   the pixel / trained_vpr_v2 retrieval rows on seed 0; it fails on a
-   fallback encoder or checkpoint, on any kernel launch (the harness's ViT
-   runs plain attention), on a 3-seed mean F1 below 0.75 or precision
-   below 0.9, or on an ablation F1 not below the gated one. Then one
-   small scene drawn once and rendered on the card and on the CPU, and
-   the harness on both with the same RANSAC draws, in float32 and with
-   the shipped bf16 models, held to the renderer's parity rule and to the
-   harness's band rule for each dtype.
-Phases 5 and 6 run like phase 3 (warm-up, three timed runs, one
+7. the decision-quality harness, bench.py quality2: v2 GT scenes (4
+   floors x 32 places x 2 passes, 270x360) drawn and rendered on the card
+   for seeds 0, 1 and 2, ``eval.quality.run_gate_quality`` with the
+   parallax-trained tiny encoder and LightGlue (top-16 at 0.30, 512
+   keypoints, verify batches of 256), the no-floor-gate ablation, the
+   retrieval rows of every encoder (pixel, trained_vpr_v2, trained_vpr,
+   mixvpr_trained, salad, anyloc) on seed 0 and of pixel, SALAD and AnyLoc
+   over the three seeds, and the CricaVPR rows (rr_cricavpr*,
+   aliased_rate_*, ``run_gate_quality_rerank``'s f1_crica_rerank_off/on,
+   rr_crica_tiny*); it fails on a missing checkpoint, on any kernel launch
+   outside the CricaVPR rows (the reference builds those ViTs with
+   use_pallas=False), on CricaVPR rows that launch anything but the dense
+   kernel, on a 3-seed mean F1 below 0.75 or precision below 0.9, on an
+   ablation F1 not below the gated one, or on a 3-seed retrieval recall of
+   SALAD or AnyLoc not above the pixel encoder's. Then one small scene
+   drawn once and rendered on the card and on the CPU, and the harness on
+   both with the same RANSAC draws, in float32 and with the shipped bf16
+   models, held to the renderer's parity rule and to the harness's band
+   rule for each dtype;
+8. path C, the gate with the rest of the VPR menu: SALAD (476x644, 1565
+   tokens, 8448-d) and AnyLoc (518x518, 1370 tokens, 49152-d), each a
+   ViT-B/14 from torch.Generator(0), on phase 5's keyframes and matcher,
+   every block's attention on the flash kernel (12 launches per encode
+   batch of 64) and none on the dense kernel; then unit, finite
+   descriptors of the right width, and the first 4 keyframes through each
+   encoder on the card and on the CPU with the same weights (cosine
+   >= 0.999).
+Phases 5, 6 and 8 run like phase 3 (warm-up, three timed runs, one
 profiled run), with every launch counter set to 0 before each run.
 
 The last two lines of standard output are the card's name and power limit
 and ``{"ok": true, "device": {...}}``; the line before them lists each
-ported kernel with its launches on its path and its times. Any failure
+ported kernel with its launches (one run of each path that reaches it,
+summed, and by path) and its times. Any failure
 exits nonzero; so does a run with no CUDA device, or one from a directory
 without the mlis_tpu_torch package.
 """
@@ -512,6 +529,42 @@ def phase_attention_check(dev) -> dict:
                                                 KERNEL_REPS),
                   bound_ms=bound_ms, bound_by=bound_by)
     record("vit_1370_via_multi_head_attention", "flash_attention", fields)
+    del q4, k4, v4
+
+    # path C's shapes at its encode batch of 64 images x 12 heads: SALAD
+    # (476x644, 1565 tokens) and AnyLoc (518x518, 1370 tokens), q, k and v
+    # the slices of one packed (B, S, 3, H, Dh) qkv as the ViT passes them
+    for label, S in (("C_salad_1565", 1565), ("C_anyloc_1370", 1370)):
+        B = max(ENCODE_BATCH // shrink, 1)
+        qkv = randn(B, S, 3, H, 64)
+        q4, k4, v4 = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        before = (fa.flash_attention.launches, att.fused_attention.launches)
+        got = att.multi_head_attention(q4, k4, v4)
+        sync(dev)
+        if cuda and (fa.flash_attention.launches, att.fused_attention.launches) != (
+                before[0] + 1, before[1]):
+            raise AssertionError(f"{label}: multi_head_attention did not launch the flash kernel")
+        n = min(COMPARE_ROWS // H + 1, B)  # images compared: n x 12 (b, h) rows
+
+        def rows(x, m=n):
+            return x[:m].permute(0, 2, 1, 3).reshape(m * H, S, 64).contiguous()
+
+        fields = check_attention(label, rows(got), fa.flash_attention_plain(
+            rows(q4), rows(k4), rows(v4)), rows(v4), flash=True)
+        bound_ms, bound_by = attention_bound(4.0 * S * S * 64 * B * H, 4.0 * B * H * S * 64 * 2)
+        mha_ms = timed(lambda: att.multi_head_attention(q4, k4, v4), KERNEL_REPS)
+        fields.update(
+            shape=f"B={B},S={S},H={H},Dh=64,row_stride={q4.stride(1)}", compared_rows=n * H,
+            ms=(timed(lambda: fa._launch_flash(q4, k4, v4, None), KERNEL_REPS) if cuda
+                else mha_ms),
+            multi_head_attention_ms=mha_ms,
+            plain_ms=timed(lambda: fa.flash_attention_plain(rows(q4, B), rows(k4, B), rows(v4, B)),
+                           PLAIN_REPS),
+            library_ms=timed(lambda: F.scaled_dot_product_attention(
+                *(x.transpose(1, 2) for x in (q4, k4, v4))), KERNEL_REPS),
+            bound_ms=bound_ms, bound_by=bound_by)
+        record(label, "flash_attention", fields)
+        del qkv, q4, k4, v4, got
 
     out = {}
     for kernel, main in (("dense_attention", "K4_no_bias"), ("flash_attention", "K2_pathB")):
@@ -784,6 +837,90 @@ def phase_path_b(dev, args) -> dict:
     return drive_gate_path("6", dev, pipe, inputs, expected)
 
 
+# path C (phase 8): the gate with the other two encoders of the VPR menu,
+# each a DINOv2 ViT-B/14 from a random initialisation, as the JAX gate has it
+PATH_C = {"salad": 8448, "anyloc": 64 * 768}  # descriptor widths
+PATH_C_CHECK_FRAMES = 4  # keyframes encoded on the card and on the CPU
+
+
+def check_descriptors(d: torch.Tensor, width: int, what: str) -> None:
+    if tuple(d.shape[1:]) != (width,) or not bool(torch.isfinite(d).all()):
+        raise AssertionError(f"{what}: descriptors {tuple(d.shape)}, finite "
+                             f"{bool(torch.isfinite(d).all())}; expected width {width}")
+    norms = torch.linalg.vector_norm(d.float(), dim=1)
+    if float((norms - 1).abs().max()) > 1e-4:
+        raise AssertionError(f"{what}: descriptor norms {norms.min():.6f}-{norms.max():.6f}")
+
+
+def phase_path_c(dev, args) -> dict:
+    """FullGatePipeline with SALAD (476x644, 1565 tokens) and with AnyLoc
+    (518x518, 1370 tokens) at ViT-B/14 width, random weights from
+    torch.Generator(0), on phase 3's keyframes with path A's matcher and
+    protocol: every block's attention on the flash kernel (12 launches per
+    encode batch of 64), none on the dense kernel. Then the first keyframes
+    through each encoder on the card and on the CPU, the same weights."""
+    from mlis_tpu_torch.gating.full_gate import FullGatePipeline
+    from mlis_tpu_torch.gating.place_recognition import SemanticPlaceRecognition
+    from mlis_tpu_torch.gating.verification import GeometricVerifier
+    from mlis_tpu_torch.models.lightglue import LightGlue
+    from mlis_tpu_torch.models.superpoint import SuperPointConfig
+    from mlis_tpu_torch.models.vit import ViTConfig
+    from mlis_tpu_torch.weights import default_matcher_checkpoint
+
+    cuda = dev.type == "cuda"
+    inputs = keyframes(args.keyframes)
+    n = len(inputs[0])
+    matcher = LightGlue.from_checkpoint(
+        default_matcher_checkpoint(), sp_cfg=SuperPointConfig(max_keypoints=1024), device=dev)
+    # the CPU rehearsal cuts the ViT's width and depth; the card runs ViT-B/14
+    enc_kw = {} if cuda else {"vit_cfg": ViTConfig.tiny_test()}
+    counts = {}
+    for method, width in PATH_C.items():
+        t0 = time.perf_counter()
+        spr = SemanticPlaceRecognition(method, similarity_threshold=0.3, min_time_gap=10.0,
+                                       device=dev, seed=0, **enc_kw)
+        vpr = spr.vpr
+        pipe = FullGatePipeline(vpr=spr, verifier=GeometricVerifier(matcher=matcher),
+                                similarity_threshold=0.3, verify_batch=VERIFY_BATCH,
+                                match_top_k=512, matcher_weights=None, num_hypotheses=512,
+                                device=dev)
+        cfg = vpr.module.cfg if method == "anyloc" else vpr.module.backbone.cfg
+        h, w = vpr.input_size
+        tokens = (h // cfg.patch_size) * (w // cfg.patch_size) + 1
+        log(f"8 {method} setup", t0, keyframes=n, weights="random (torch.Generator(0))+"
+            "lightglue_homog_sp.npz", vit=f"dim {cfg.dim} depth {cfg.depth} {cfg.dtype}",
+            input=f"{h}x{w}", tokens=tokens, descriptor=vpr.descriptor_dim,
+            encode_batch=ENCODE_BATCH)
+        if cuda and vpr.descriptor_dim != width:
+            raise AssertionError(f"8 {method}: descriptor width {vpr.descriptor_dim} != {width}")
+
+        def expected(res, depth=cfg.depth):
+            return {"tri_count": 0, "dense_attention": 0,
+                    "flash_attention": depth * -(-n // ENCODE_BATCH)}
+
+        counts[method] = drive_gate_path(f"8 {method}", dev, pipe, inputs, expected)
+        t0 = time.perf_counter()
+        frames = inputs[0][:PATH_C_CHECK_FRAMES]
+        got = vpr.encode_batch_device(inputs[0][:ENCODE_BATCH])
+        check_descriptors(got, vpr.descriptor_dim, f"8 {method} on {dev.type}")
+        fields = {}
+        if cuda:
+            cpu_vpr = SemanticPlaceRecognition(method, device="cpu", seed=0).vpr
+            want = cpu_vpr.encode_batch_device(frames)
+            check_descriptors(want, width, f"8 {method} on the cpu")
+            cos = (got[:PATH_C_CHECK_FRAMES].cpu() * want).sum(1)
+            fields = {"cpu_frames": len(frames), "cosine_min": float(cos.min()),
+                      "cpu_encode_s": f"{time.perf_counter() - t0:.3f}"}
+            if float(cos.min()) < 0.999:
+                raise AssertionError(f"8 {method}: card vs cpu cosine {cos.tolist()} < 0.999")
+            del cpu_vpr
+        log(f"8 {method} descriptors", t0, width=got.shape[1], finite_unit=True, **fields)
+        del pipe, spr, vpr
+        if cuda:
+            torch.cuda.empty_cache()
+    return counts
+
+
 def phase_card_vs_cpu(dev) -> None:
     t0 = time.perf_counter()
     images, timestamps, floors, K = keyframes(SMALL_KEYFRAMES)
@@ -879,15 +1016,25 @@ def compare_decisions(a: dict, b: dict, bands: dict, what: str) -> dict:
     return stats
 
 
-def phase_quality(dev) -> None:
-    """bench.py quality2's LightGlue row on v2 scenes drawn on the device: 3
-    seeds, the no-floor-gate ablation and the retrieval rows on seed 0."""
+def phase_quality(dev) -> dict:
+    """bench.py quality2 on v2 scenes drawn on the device: the LightGlue
+    row for 3 seeds, the no-floor-gate ablation, every encoder's retrieval
+    row and the CricaVPR rerank rows on seed 0, and the 3-seed retrieval
+    recall of SALAD, AnyLoc and the pixel encoder. Returns the launch
+    counts of the CricaVPR rows (the dense kernel's)."""
     from mlis_tpu_torch.eval import quality as tq
-    from mlis_tpu_torch.train.pretrain_vpr import load_encoder
+    from mlis_tpu_torch.train.pretrain_vpr import (
+        load_crica_tiny_vpr,
+        load_crica_vpr,
+        load_encoder,
+        load_mixvpr_vpr,
+    )
     from mlis_tpu_torch.weights import default_parallax_matcher_checkpoint
 
     t0 = time.perf_counter()
     cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
     # the CPU rehearsal cuts the scene's scale, never its shapes
     size = dict(n_floors=4, n_places=32, hw=(270, 360)) if cuda else QUALITY_SMALL
     weights = default_parallax_matcher_checkpoint()
@@ -943,16 +1090,76 @@ def phase_quality(dev) -> None:
         verified=no_gate["verified"], accepted=no_gate["geometrically_valid"],
         gate_s=f"{no_gate['elapsed_s']:.4f}")
     t0 = time.perf_counter()
-    encs = {"pixel": tq._pixel_encoder,
-            "trained_vpr_v2": load_encoder("checkpoints/vpr_tiny_v2.npz", device=dev)}
-    if encs["trained_vpr_v2"] is None:
-        raise AssertionError("phase 7: checkpoints/vpr_tiny_v2.npz is missing")
+    # bench.py quality2's retrieval rows (bench.py:811-850) on seed 0; the
+    # encoders the reference builds with use_pallas=False launch no kernel
+    enc_loaders = {
+        "trained_vpr_v2": lambda: load_encoder("checkpoints/vpr_tiny_v2.npz", device=dev),
+        "trained_vpr": lambda: load_encoder(device=dev),
+        "mixvpr_trained": lambda: getattr(load_mixvpr_vpr(device=dev), "encode_batch_device",
+                                          None),
+        "salad": lambda: load_encoder(arch="salad", device=dev),
+        "anyloc": lambda: load_encoder(arch="anyloc", device=dev),
+    }
+    encs = {"pixel": tq._pixel_encoder, **{name: f() for name, f in enc_loaders.items()}}
+    missing = [name for name, e in encs.items() if e is None]
+    if missing:
+        raise AssertionError(f"phase 7: no checkpoint for the {missing} rows")
     rr = {name: tq.retrieval_metrics(sc0, e, top_k=QUALITY["top_k"],
                                      threshold=QUALITY["similarity_threshold"], device=dev)
           for name, e in encs.items()}
-    counts = launch_counts()
     log("7 retrieval, seed 0", t0, **{f"{name}": json.dumps(m, separators=(",", ":"))
                                       for name, m in rr.items()})
+    # the 3-seed means the phase holds SALAD and AnyLoc to, against the pixel encoder
+    t0 = time.perf_counter()
+    rr_seeds = {name: [rr[name]["retrieval_recall"]] + [
+        tq.retrieval_metrics(scenes[seed], encs[name], top_k=QUALITY["top_k"],
+                             threshold=QUALITY["similarity_threshold"],
+                             device=dev)["retrieval_recall"] for seed in QUALITY_SEEDS[1:]]
+        for name in ("pixel", "salad", "anyloc")}
+    rr_means = {name: float(np.mean(v)) for name, v in rr_seeds.items()}
+    counts = launch_counts()
+    log("7 retrieval, 3 seeds", t0, **{f"rr_{name}": ",".join(f"{x:.4f}" for x in v)
+                                       for name, v in rr_seeds.items()},
+        means=json.dumps(rr_means, separators=(",", ":")),
+        launches=json.dumps(counts, separators=(",", ":")))
+    if any(counts.values()):
+        raise AssertionError(f"phase 7: the harness or a plain-attention encoder launched a "
+                             f"kernel: {counts} (the reference builds these ViTs with "
+                             "use_pallas=False and its matcher stays below the flash size)")
+
+    # the CricaVPR rows (bench.py:851-886): the ViT-B/14 at 322 px and the
+    # tiny ViT under the CricaVPR class run the dense kernel, as the
+    # reference's use_pallas=None does on the TPU
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    crica, crica_tiny = load_crica_vpr(device=dev), load_crica_tiny_vpr(device=dev)
+    if crica is None or crica_tiny is None:
+        raise AssertionError("phase 7: checkpoints/vpr_crica.npz or vpr_tiny_v2.npz is missing")
+    crica_rows = {}
+    for name, vpr in (("cricavpr", crica), ("crica_tiny", crica_tiny)):
+        for rerank in (False, True):
+            m = tq.retrieval_metrics(sc0, vpr, top_k=QUALITY["top_k"],
+                                     threshold=QUALITY["similarity_threshold"], rerank=rerank,
+                                     device=dev)
+            tag = name + ("_rerank" if rerank else "")
+            crica_rows[f"rr_{tag}"] = round(m["retrieval_recall"], 3)
+            crica_rows[f"aliased_rate_{tag}"] = round(m["aliased_rate"], 3)
+    for rerank in (False, True):
+        out = tq.run_gate_quality_rerank(sc0, rerank=rerank, crica=crica,
+                                         top_k=QUALITY["top_k"],
+                                         similarity_threshold=QUALITY["similarity_threshold"],
+                                         weights_path=weights, device=dev)
+        crica_rows[f"f1_crica_rerank_{'on' if rerank else 'off'}"] = round(out["f1"], 3)
+        log(f"7 crica rerank {'on' if rerank else 'off'}, seed 0", t0, f1=out["f1"],
+            precision=out["precision"], recall=out["recall"],
+            candidates=out["total_candidates"], floor_rejected=out["cross_floor_rejected"],
+            verified=out["verified"], weights=out["weights"], encoder=out["encoder"])
+    crica_counts = launch_counts()
+    log("7 crica rows, seed 0", t0, launches=json.dumps(crica_counts, separators=(",", ":")))
+    if cuda and (crica_counts["dense_attention"] < 1 or crica_counts["flash_attention"]
+                 or crica_counts["tri_count"]):
+        raise AssertionError(f"phase 7: the CricaVPR rows launched {crica_counts}; expected the "
+                             "dense kernel alone")
 
     f1s = [runs[s]["f1"] for s in QUALITY_SEEDS]
     precs = [runs[s]["precision"] for s in QUALITY_SEEDS]
@@ -963,21 +1170,23 @@ def phase_quality(dev) -> None:
         "recall_trained": round(float(np.mean([runs[s]["recall"] for s in QUALITY_SEEDS])), 3),
         "f1_no_floor_gate": round(no_gate["f1"], 3),
         "precision_no_floor_gate": round(no_gate["precision"], 3),
-        "rr_pixel": round(rr["pixel"]["retrieval_recall"], 3),
-        "rr_trained_vpr_v2": round(rr["trained_vpr_v2"]["retrieval_recall"], 3),
+        **{f"rr_{name}": round(m["retrieval_recall"], 3) for name, m in rr.items()},
+        **crica_rows,
     }
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     log("7 quality2", time.perf_counter(), rows=json.dumps(rows, separators=(",", ":")),
         mean_f1=float(np.mean(f1s)), mean_precision=float(np.mean(precs)),
-        launches=json.dumps(counts, separators=(",", ":")))
-    if any(counts.values()):
-        raise AssertionError(f"phase 7: the harness launched a kernel: {counts} (its ViT runs "
-                             "plain attention and its matcher stays below the flash size)")
+        rr_3seed_means=json.dumps(rr_means, separators=(",", ":")), peak_mem_bytes=peak)
     if cuda and (np.mean(f1s) < QUALITY_F1_MIN or np.mean(precs) < QUALITY_PRECISION_MIN):
         raise AssertionError(f"phase 7: mean F1 {np.mean(f1s)} (needs {QUALITY_F1_MIN}), mean "
                              f"precision {np.mean(precs)} (needs {QUALITY_PRECISION_MIN})")
     if cuda and no_gate["f1"] >= runs[0]["f1"]:
         raise AssertionError(f"phase 7: F1 without the floor gate {no_gate['f1']} is not below "
                              f"the gated {runs[0]['f1']}")
+    if cuda and min(rr_means["salad"], rr_means["anyloc"]) <= rr_means["pixel"]:
+        raise AssertionError(f"phase 7: 3-seed retrieval recall {rr_means}: SALAD and AnyLoc "
+                             "must stay above the pixel encoder")
+    return crica_counts
 
 
 def phase_quality_card_vs_cpu(dev) -> None:
@@ -1040,8 +1249,9 @@ def main() -> int:
         phase_card_vs_cpu(dev)
         path_a = phase_path_a(dev, args)
         path_b = phase_path_b(dev, args)
-        phase_quality(dev)
+        quality = phase_quality(dev)
         phase_quality_card_vs_cpu(dev)
+        path_c = phase_path_c(dev, args)
     signal.alarm(0)
     print(f"[total] {time.perf_counter() - t_all:.3f}s", flush=True)
     if dev.type != "cuda":
@@ -1064,14 +1274,19 @@ def main() -> int:
         "route": "cuda",
         "source": "mlis_tpu_torch/csrc/attention.cu",
         "replaces": "mlis_tpu/ops/flash_attention.py:31, mlis_tpu/ops/flash_attention.py:80",
-        "launches": path_b["flash_attention"],
+        # one gate run of each path that reaches it
+        "launches": path_b["flash_attention"] + sum(c["flash_attention"] for c in path_c.values()),
+        "launches_by_path": {"B": path_b["flash_attention"],
+                             **{f"C_{m}": c["flash_attention"] for m, c in path_c.items()}},
         **attn["flash_attention"],
     }, {
         "name": "dense_attention",
         "route": "cuda",
         "source": "mlis_tpu_torch/csrc/attention.cu",
         "replaces": "mlis_tpu/ops/attention.py:25, mlis_tpu/ops/attention.py:38",
-        "launches": path_a["dense_attention"],
+        "launches": path_a["dense_attention"] + quality["dense_attention"],
+        "launches_by_path": {"A": path_a["dense_attention"],
+                             "quality2_cricavpr_rows": quality["dense_attention"]},
         **attn["dense_attention"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

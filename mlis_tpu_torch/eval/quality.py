@@ -1,8 +1,8 @@
 """Gate decision quality: loop-closure precision, recall and F1 on synthetic
 multi-floor scenes with known ground truth.
 
-Counterpart of ``mlis_tpu/eval/quality.py`` for the LightGlue rows of
-``bench.py``'s ``quality2`` mode:
+Counterpart of ``mlis_tpu/eval/quality.py`` for the LightGlue, retrieval
+and CricaVPR-rerank rows of ``bench.py``'s ``quality2`` mode:
 
 * scenes: ``make_quality_scene`` (v1, one homography per revisit) and
   ``make_quality_scene_v2`` (layered planes seen from two camera poses:
@@ -16,7 +16,9 @@ Counterpart of ``mlis_tpu/eval/quality.py`` for the LightGlue rows of
   ``retrieval_metrics`` (with the CricaVPR rerank);
 * ``build_verifier`` for the ``"trained"`` and ``"random"`` LightGlue
   families, and ``run_gate_quality``, which renders or takes a scene, runs
-  ``FullGatePipeline.process`` and scores its decisions.
+  ``FullGatePipeline.process`` and scores its decisions;
+  ``run_gate_quality_rerank`` scores the same flow with the CricaVPR
+  rerank in its retrieval stage.
 
 The scenes drawn here are other scenes of the same distribution as the
 JAX package's: its draws come from ``jax.random``.
@@ -639,6 +641,100 @@ def run_gate_quality(
             }
             for r in res.results
         ] if return_pairs else None,
+    }
+
+
+def run_gate_quality_rerank(
+    scene: QualityScene,
+    rerank: bool = True,
+    matcher: str = "trained",
+    top_k: int = 16,
+    similarity_threshold: float = 0.3,
+    rerank_pool: Optional[int] = None,
+    max_keypoints: int = 512,
+    min_time_gap: float = 10.0,
+    min_confident_matches: int = 6,
+    weights_path: Optional[str] = None,
+    crica=None,
+    ransac_uniforms: Optional[torch.Tensor] = None,
+    device="cuda",
+) -> Dict:
+    """End-to-end decisions with the CricaVPR rerank in the retrieval stage:
+    a cosine pool of 2 top_k, re-sorted by 0.5 global + 0.5 patch
+    correlation, the top_k kept, then the threshold (on the global score),
+    the strict floor gate and fused match + RANSAC verification in batches
+    of 64, scored against the scene's ground truth. ``rerank=False`` runs
+    the same flow without the re-sort, so the F1 difference is the rerank's
+    end-decision value. ``crica`` reuses one encoder across the A/B pair
+    (its patch cache is refilled); without it the shipped ``vpr_crica.npz``
+    is loaded, or a random CricaVPR when it is not there.
+    ``ransac_uniforms`` is as in :func:`run_gate_quality`."""
+    from mlis_tpu_torch.gating.full_gate import FullGatePipeline
+    from mlis_tpu_torch.gating.gate import gate_mask
+
+    if crica is None:
+        from mlis_tpu_torch.models.cricavpr import CricaVPR
+        from mlis_tpu_torch.train.pretrain_vpr import load_crica_vpr
+
+        crica, encoder_name = load_crica_vpr(device=device), "cricavpr_trained"
+        if crica is None:
+            crica, encoder_name = CricaVPR(checkpoint=None, device=device), "cricavpr_random"
+    else:
+        encoder_name = "cricavpr_provided"
+
+    imgs = torch.as_tensor(scene.images, device=device)
+    crica.patch_cache = []
+    crica._patch_matrix = None
+    db = crica.encode_batch_device(imgs)
+    N = int(db.shape[0])
+    pool = int(rerank_pool or 2 * top_k) if rerank else top_k
+    scores, idx = _retrieve(scene, db, min(pool, N), min_time_gap)
+    if rerank:
+        cc = crica.rerank_scores_all(np.arange(N), idx)
+        w = getattr(crica, "rerank_weight", 0.5)
+        mixed = np.where(np.isfinite(scores), (1 - w) * scores + w * cc, -np.inf)
+        order = np.argsort(-mixed, axis=1)[:, :top_k]
+        rows = np.arange(N)[:, None]
+        scores, idx = scores[rows, order], idx[rows, order]
+
+    qi, kk = np.nonzero(np.isfinite(scores) & (scores >= similarity_threshold))
+    mj = idx[qi, kk]
+    pairs = np.unique(np.stack([np.minimum(qi, mj), np.maximum(qi, mj)], axis=1), axis=0)
+    total = len(pairs)
+    survivors, rejected = pairs, 0
+    if total:
+        accept = gate_mask(torch.as_tensor(np.asarray(scene.floors)),
+                           torch.as_tensor(pairs[:, 0]), torch.as_tensor(pairs[:, 1]),
+                           True).numpy()
+        survivors, rejected = pairs[accept], int((~accept).sum())
+
+    verifier, weights = build_verifier(matcher, max_keypoints, tuple(imgs.shape[1:3]),
+                                       weights_path, min_confident_matches, device=device)
+    pipe = FullGatePipeline(vpr=SimpleNamespace(vpr=SimpleNamespace(encode_batch_device=None)),
+                            verifier=verifier, verify_batch=64, matcher_weights=None,
+                            device=device)
+    results = []
+    if len(survivors):
+        qs, ms = (torch.as_tensor(survivors[:, c], device=device) for c in (0, 1))
+        results = pipe._verify_survivors(pipe._detect_all(imgs), qs, ms, scene.K,
+                                         tuple(imgs.shape[1:3]), ransac_uniforms, None)
+    res = SimpleNamespace(results=results, total_pairs=total, cross_floor_rejected=rejected,
+                          verified=len(results))
+    m = score_gate_decisions(res, scene)
+    return {
+        "matcher": matcher,
+        "weights": weights,
+        "encoder": encoder_name,
+        "rerank": bool(rerank),
+        "precision": m.precision,
+        "recall": m.recall,
+        "f1": m.f1_score,
+        "gating_effectiveness": m.gating_effectiveness,
+        "total_candidates": total,
+        "cross_floor_rejected": rejected,
+        "verified": len(results),
+        "true_positives": m.true_positives,
+        "false_positives": m.false_positives,
     }
 
 

@@ -25,9 +25,13 @@ class TorchEncoderVPR(BasePlaceRecognition):
     input_size: Tuple[int, int] = (224, 224)
 
     def __init__(self, descriptor_dim: int, device="cuda"):
-        super().__init__(descriptor_dim=descriptor_dim, encoder=self)
-        self.device = torch.device(device)
+        super().__init__(descriptor_dim=descriptor_dim, encoder=self, device=device)
         self.module: torch.nn.Module = None  # set by the subclass
+
+    def load_state(self, state_dict) -> None:
+        """Load ``self.module``'s weights (strict) onto the encoder's device."""
+        self.module.load_state_dict(state_dict, strict=True)
+        self.module.to(self.device)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         return fit_descriptor_dim(self.module(x), self.descriptor_dim)

@@ -69,10 +69,6 @@ class CricaVPR(TorchEncoderVPR):
         self.patch_cache: List[torch.Tensor] = []  # (P, D) float32 per image, on the device
         self._patch_matrix: Optional[torch.Tensor] = None
 
-    def load_state(self, state_dict) -> None:
-        self.module.load_state_dict(state_dict, strict=True)
-        self.module.to(self.device)
-
     def _forward_full(self, x: torch.Tensor):
         patches = self.module(x)["patches"].to(torch.float32)
         desc = gem_pool(patches, p=3.0)

@@ -3,6 +3,8 @@
 Parameters are stored in float32. ``Dense`` and ``Conv`` compute in their
 ``dtype`` (inputs, weights and bias cast to it, as flax does with
 ``dtype=``); normalisation runs in float32 and casts back.
+:func:`flax_init_` draws a random initialisation with flax's default
+distributions from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -75,3 +77,30 @@ class FrozenBatchNorm(nn.Module):
         s = self.weight * r
         shift = self.bias - self.running_mean * self.weight * r
         return x * s.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+# flax's lecun_normal: a normal truncated at two standard deviations, its
+# scale corrected so that the truncated variance is 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``truncated_normal(std)``: N(0, std^2) cut at +-2 std."""
+    return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+@torch.no_grad()
+def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-draw every Dense and Conv of ``module`` as flax initialises them
+    (lecun-normal kernels over the fan-in, zero biases) and reset each
+    LayerNorm to ones and zeros. Draws come from ``generator`` alone."""
+    for m in module.modules():
+        if isinstance(m, (Dense, Conv)):
+            fan_in = m.weight[0].numel()
+            trunc_normal_(m.weight, (1.0 / fan_in) ** 0.5 / _TRUNC_STD, generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+    return module

@@ -106,6 +106,3 @@ class MixVPR(TorchEncoderVPR):
             self.load_state(load_npz(checkpoint)["vpr"])
         self.module.to(self.device).eval()
 
-    def load_state(self, state_dict) -> None:
-        self.module.load_state_dict(state_dict, strict=True)
-        self.module.to(self.device)

@@ -27,7 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mlis_tpu_torch.models.layers import Conv, Dense, LayerNorm
+from mlis_tpu_torch.models.layers import Conv, Dense, LayerNorm, flax_init_, trunc_normal_
 from mlis_tpu_torch.ops.attention import multi_head_attention
 
 
@@ -172,6 +172,21 @@ class ViT(nn.Module):
         self.norm = LayerNorm(c.dim)
         for p in (self.cls_token, self.pos_embed):
             nn.init.trunc_normal_(p, std=0.02)
+
+    @torch.no_grad()
+    def init_random_(self, generator: torch.Generator) -> "ViT":
+        """A random initialisation with the reference's distributions, drawn
+        from ``generator`` alone: flax's defaults for every Dense, Conv and
+        LayerNorm, truncated N(0, 0.02^2) tokens and position table, and
+        LayerScale at ``layerscale_init``."""
+        flax_init_(self, generator)
+        for name in ("cls_token", "pos_embed", "register_tokens"):
+            if hasattr(self, name):
+                trunc_normal_(getattr(self, name), 0.02, generator)
+        for m in self.modules():
+            if isinstance(m, LayerScale):
+                m.gamma.fill_(self.cfg.layerscale_init)
+        return self
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         c = self.cfg

@@ -3,9 +3,10 @@
 Counterpart of ``mlis_tpu/ops/epipolar.py``, written over a leading pair
 dimension P instead of ``vmap``:
 
-* hypotheses: the gauge-fixed (E_33 = 1) 8-point solve on random minimal
-  samples, by Gauss-Jordan on the 8x8 normal equations;
-* scoring: Sampson distance in normalised coordinates against
+* hypotheses (:func:`sample_hypotheses`): the gauge-fixed (E_33 = 1)
+  8-point solve on random minimal samples, by Gauss-Jordan on the 8x8
+  normal equations;
+* scoring (:func:`score_hypotheses`): Sampson distance in normalised coordinates against
   (threshold_px / mean focal)^2; the top 8 hypotheses by count (ties to
   the lower index) are projected onto the essential manifold by SVD and
   rescored, and the first best one wins;
@@ -107,36 +108,46 @@ def _topk_stable(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(x, dim=-1, descending=True, stable=True)[1][..., :k]
 
 
-def essential_ransac_batch_core(
-    kpts1: torch.Tensor,  # (P, N, 2) pixels
-    kpts2: torch.Tensor,
+def sample_hypotheses(
+    x1: torch.Tensor,  # (P, N, 2) normalised coordinates
+    x2: torch.Tensor,
     valid: torch.Tensor,  # (P, N) bool
-    K: torch.Tensor,  # (3, 3)
     uniforms: torch.Tensor,  # (P, H, 8) in [0, 1)
-    threshold_px: float = 3.0,
-    score_subset: int = 0,
-) -> EssentialResult:
-    P, N = valid.shape
-    x1 = normalize_points(kpts1.to(torch.float32), K)
-    x2 = normalize_points(kpts2.to(torch.float32), K)
+) -> torch.Tensor:
+    """The (P, H, 3, 3) unprojected 8-point hypotheses: each row of
+    ``uniforms`` picks 8 of the valid correspondences (valid ones first,
+    in index order) for one gauge-fixed solve."""
+    P = valid.shape[0]
     n_valid = valid.sum(1)  # (P,)
-    nv1 = n_valid.clamp_min(1)
-
     order = torch.sort((~valid).to(torch.uint8), dim=1, stable=True)[1]  # valid first
-    draw = (uniforms.to(torch.float32) * nv1[:, None, None].to(torch.float32)).to(torch.int64)
+    draw = (uniforms.to(torch.float32)
+            * n_valid.clamp_min(1)[:, None, None].to(torch.float32)).to(torch.int64)
     draw = torch.minimum(draw, (n_valid - 1).clamp_min(0)[:, None, None])
     idx = order.gather(1, draw.reshape(P, -1)).reshape(draw.shape)  # (P, H, 8)
 
     def pick(x):
         return x.gather(1, idx.reshape(P, -1, 1).expand(-1, -1, 2)).reshape(*idx.shape, 2)
 
-    Es = _eight_point(pick(x1), pick(x2))  # (P, H, 3, 3)
+    return _eight_point(pick(x1), pick(x2))
 
-    f_mean = 0.5 * (K[0, 0] + K[1, 1])
-    thr = (threshold_px / f_mean) ** 2
 
+def score_hypotheses(
+    Es: torch.Tensor,  # (P, H, 3, 3) unprojected hypotheses
+    x1: torch.Tensor,  # (P, N, 2) normalised coordinates
+    x2: torch.Tensor,
+    valid: torch.Tensor,  # (P, N) bool
+    thr: float,  # squared Sampson threshold in normalised units
+    score_subset: int = 0,
+) -> EssentialResult:
+    """RANSAC's scoring and selection: inlier counts of every hypothesis
+    (on a stratified subset of ``score_subset`` valid points when 0 <
+    score_subset < N), the top 8 projected onto the essential manifold and
+    rescored on every point, the first best one kept."""
+    P, N = valid.shape
+    nv1 = valid.sum(1).clamp_min(1)
     if 0 < score_subset < N:
         S = int(score_subset)
+        order = torch.sort((~valid).to(torch.uint8), dim=1, stable=True)[1]
         pos = (torch.arange(S, device=valid.device)[None, :] * nv1[:, None]) // S
         sub = order.gather(1, pos.clamp(max=N - 1))  # (P, S)
         x1s = x1.gather(1, sub[..., None].expand(-1, -1, 2))
@@ -155,6 +166,27 @@ def essential_ransac_batch_core(
     num = counts_c[ar, best]
     ratio = num.to(torch.float32) / nv1.to(torch.float32)
     return EssentialResult(E_cand[ar, best], inl_c[ar, best], num.to(torch.int32), ratio)
+
+
+def sampson_threshold(K: torch.Tensor, threshold_px: float) -> torch.Tensor:
+    """(threshold_px / mean focal)^2, the squared Sampson cut."""
+    return (threshold_px / (0.5 * (K[0, 0] + K[1, 1]))) ** 2
+
+
+def essential_ransac_batch_core(
+    kpts1: torch.Tensor,  # (P, N, 2) pixels
+    kpts2: torch.Tensor,
+    valid: torch.Tensor,  # (P, N) bool
+    K: torch.Tensor,  # (3, 3)
+    uniforms: torch.Tensor,  # (P, H, 8) in [0, 1)
+    threshold_px: float = 3.0,
+    score_subset: int = 0,
+) -> EssentialResult:
+    """:func:`sample_hypotheses`, then :func:`score_hypotheses`."""
+    x1 = normalize_points(kpts1.to(torch.float32), K)
+    x2 = normalize_points(kpts2.to(torch.float32), K)
+    Es = sample_hypotheses(x1, x2, valid, uniforms)
+    return score_hypotheses(Es, x1, x2, valid, sampson_threshold(K, threshold_px), score_subset)
 
 
 def _triangulate_depths(R, t, x1, x2):

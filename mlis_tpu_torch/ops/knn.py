@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -72,3 +73,17 @@ def pairwise_similarity(
     """Full N x N cosine similarity matrix, in query chunks."""
     dn = _normalized(descriptors, compute_dtype)
     return torch.cat([dn[s : s + chunk] @ dn.T for s in range(0, dn.shape[0], chunk)])
+
+
+def loop_closure_topk(
+    descriptors: torch.Tensor,  # (N, D)
+    timestamps: torch.Tensor,  # (N,)
+    k: int = 10,
+    min_time_gap: float = 10.0,
+    chunk: int = 1024,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Every frame against the whole database, itself and its temporal
+    neighbours masked: host (scores (N, k), indices (N, k))."""
+    scores, idx = cosine_topk(descriptors, descriptors, timestamps, timestamps, k=k,
+                              min_time_gap=min_time_gap, chunk=chunk)
+    return scores.cpu().numpy(), idx.cpu().numpy()

@@ -1,9 +1,12 @@
-"""Descriptor aggregation: GeM pooling and the cross-image patch correlation.
+"""Descriptor aggregation: GeM pooling, VLAD and the cross-image patch
+correlation.
 
-Counterpart of ``mlis_tpu/ops/pooling.py`` (VLAD waits for AnyLoc's port),
-float32 throughout:
+Counterpart of ``mlis_tpu/ops/pooling.py``, float32 throughout:
 
 * GeM p = 3, CricaVPR's descriptor pooling;
+* hard-assignment VLAD, AnyLoc's aggregation: each token goes to the first
+  nearest centre, residuals are summed per centre, intra-normalised, then
+  the flattened vector is L2-normalised;
 * the CricaVPR rerank score: L2-normalise both images' patch features,
   correlate, take the mean best match in each direction, clip at 0, and
   return the geometric mean of the two.
@@ -18,6 +21,28 @@ def gem_pool(tokens: torch.Tensor, p: float = 3.0, eps: float = 1e-6) -> torch.T
     """Generalised-mean pooling over the token axis: (B, N, D) -> (B, D)."""
     x = tokens.to(torch.float32).clamp_min(eps)
     return (x**p).mean(1) ** (1.0 / p)
+
+
+def nearest_center(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """(..., D) points, (K, D) centres -> (...) index of the first nearest
+    centre, the squared distances expanded as x^2 - 2 x.c + c^2 (in that
+    order, as the reference computes them)."""
+    d2 = (x * x).sum(-1, keepdim=True) - 2 * (x @ centers.T) + (centers * centers).sum(-1)
+    return d2.argmin(-1)
+
+
+def vlad_aggregate(tokens: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """(B, N, D) local descriptors, (K, D) vocabulary -> (B, K * D): hard
+    assignment by :func:`nearest_center`, residual sums through the one-hot
+    product, intra-normalisation (eps 1e-12), then global L2."""
+    x = tokens.to(torch.float32)
+    c = centers.to(torch.float32)
+    assign = torch.nn.functional.one_hot(nearest_center(x, c), c.shape[0]).to(torch.float32)
+    sums = torch.einsum("bnk,bnd->bkd", assign, x)
+    vlad = sums - assign.sum(1)[..., None] * c
+    vlad = vlad / (torch.linalg.vector_norm(vlad, dim=-1, keepdim=True) + 1e-12)
+    flat = vlad.reshape(vlad.shape[0], -1)
+    return flat / (torch.linalg.vector_norm(flat, dim=-1, keepdim=True) + 1e-12)
 
 
 def _l2n(x: torch.Tensor) -> torch.Tensor:

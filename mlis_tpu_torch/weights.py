@@ -16,7 +16,13 @@ tree onto the port's module names:
   ``block{i}/attn/qkv`` (a Dense, so (in, 3 dim) -> (3 dim, in)),
   ``patch_embed`` (a Conv, HWIO -> OIHW), ``pos_embed``, ``cls_token``,
   ``register_tokens`` and the LayerScale ``ls1``/``ls2`` ``gamma``; its
-  blocks are named ``block0`` ... rather than scanned, so no split applies.
+  blocks are named ``block0`` ... rather than scanned, so no split applies;
+* the SALAD head (``head/{feat,score,token}_{hidden,proj}``) is Dense
+  layers, transposed as above, and its scalar ``dustbin`` keeps its name;
+* AnyLoc's ``vlad/centers`` group is the (K, D) vocabulary, kept as is.
+
+:func:`carry_jax_vpr` puts a flax-initialised encoder's parameters (numpy
+leaves) into the port's encoder of the same architecture.
 """
 
 from __future__ import annotations
@@ -101,6 +107,18 @@ def default_mixvpr_checkpoint() -> Optional[str]:
 def default_crica_checkpoint() -> Optional[str]:
     """The in-env-trained CricaVPR ViT-B/14 (``vpr_crica.npz``)."""
     return shipped_checkpoint("vpr_crica.npz")
+
+
+def carry_jax_vpr(vpr, params: Any, centers: Optional[np.ndarray] = None):
+    """Load a flax parameter tree (SALAD, AnyLoc, CricaVPR or MixVPR, numpy
+    leaves) into the port's encoder ``vpr``; ``centers`` is AnyLoc's
+    vocabulary. Returns ``vpr``."""
+    state = from_jax_params(params)
+    if centers is None:
+        vpr.load_state(state)
+    else:
+        vpr.load_state(state, centers=centers)
+    return vpr
 
 
 def matcher_arch_from_npz(path: str) -> Dict[str, int]:

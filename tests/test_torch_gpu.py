@@ -220,11 +220,12 @@ def test_wgmma_kernels_across_shapes(cuda, dtype, Dh, S, T):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
-@pytest.mark.parametrize("S", [530, 1370])
+@pytest.mark.parametrize("S", [530, 1370, 1565])
 def test_packed_qkv_views_are_read_in_place(cuda, dtype, S):
     """The ViT's q, k, v: slices of one packed (B, S, 3, H, Dh) tensor,
-    row stride 3 H Dh. 530 tokens go to the dense kernel, 1370 to the
-    flash kernel; the output is the kernel's contiguous (B, S, H, Dh)."""
+    row stride 3 H Dh. 530 tokens (CricaVPR) go to the dense kernel, 1370
+    (AnyLoc) and 1565 (SALAD) to the flash kernel; the output is the
+    kernel's contiguous (B, S, H, Dh)."""
     from mlis_tpu_torch.ops.attention import _plain_multi_head, fused_attention, multi_head_attention
     from mlis_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
@@ -235,7 +236,7 @@ def test_packed_qkv_views_are_read_in_place(cuda, dtype, S):
     assert q.stride(1) == 3 * H * Dh and not q.is_contiguous()
     before = (flash_attention.launches, fused_attention.launches)
     got = multi_head_attention(q, k, v)
-    flash = S == 1370
+    flash = S > 1024
     assert (flash_attention.launches, fused_attention.launches) == (
         before[0] + flash, before[1] + (not flash))
     assert got.shape == (B, S, H, Dh) and got.is_contiguous()
@@ -284,6 +285,34 @@ def test_wrappers_raise_on_misaligned_views(cuda):
             fn(q, ok, ok)
         with pytest.raises(ValueError, match="16-byte aligned"):
             fn(ok, shifted, ok)
+
+
+@pytest.mark.parametrize("method", ["salad", "anyloc"])
+def test_full_width_salad_and_anyloc_on_the_flash_kernel(cuda, method):
+    """The gate's SALAD (476x644, 1565 tokens) and AnyLoc (518x518, 1370
+    tokens) at ViT-B/14 width: one flash launch per block and none of the
+    dense kernel, unit descriptors of 8448 / 49152, within a cosine of
+    0.999 of the same weights on the CPU (bf16)."""
+    from mlis_tpu_torch.gating.place_recognition import _build_vpr
+    from mlis_tpu_torch.ops.attention import fused_attention
+    from mlis_tpu_torch.ops.flash_attention import flash_attention
+
+    vpr = _build_vpr(method, device="cpu")
+    rng = np.random.default_rng(0)
+    images = np.kron(rng.integers(0, 255, (2, 34, 45), dtype=np.uint8),
+                     np.ones((8, 8), np.uint8))[:, :270, :360]
+    want = vpr.encode_batch_device(images)
+    vpr.module.to(cuda)
+    vpr.device = cuda
+    if method == "anyloc":
+        vpr.centers = vpr.centers.to(cuda)
+    before = (flash_attention.launches, fused_attention.launches)
+    got = vpr.encode_batch_device(images)
+    assert (flash_attention.launches, fused_attention.launches) == (before[0] + 12, before[1])
+    assert got.shape == want.shape == (2, 8448 if method == "salad" else 49152)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(torch.linalg.vector_norm(got, dim=1).cpu(), torch.ones(2))
+    assert bool(((got.cpu() * want).sum(1) >= 0.999).all())
 
 
 def test_vit_plain_attention_switch(cuda):

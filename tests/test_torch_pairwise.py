@@ -199,6 +199,9 @@ def test_port_runs_without_jax_or_mlis_tpu():
         import mlis_tpu_torch.models.cricavpr, mlis_tpu_torch.gating.place_recognition
         import mlis_tpu_torch.eval.quality, mlis_tpu_torch.eval.semantic_eval
         import mlis_tpu_torch.train.matcher_trainer, mlis_tpu_torch.train.pretrain_vpr
+        import mlis_tpu_torch.ops.sinkhorn, mlis_tpu_torch.ops.knn, mlis_tpu_torch.weights
+        import mlis_tpu_torch.models.salad, mlis_tpu_torch.models.anyloc
+        from mlis_tpu_torch.gating.place_recognition import _build_vpr, process_image_sequence
         rng = np.random.default_rng(0)
         pos = rng.normal(size=(700, 3)) * 3
         fl = rng.integers(1, 4, 700)
@@ -210,6 +213,14 @@ def test_port_runs_without_jax_or_mlis_tpu():
         from mlis_tpu_torch.eval.quality import make_quality_scene_v2
         scene = make_quality_scene_v2(n_floors=2, n_places=2, hw=(64, 96), device="cpu")
         assert scene.images.shape == (8, 64, 96) and len(scene.gt_pairs) == 4
+        small = dict(vit_cfg=ViTConfig.tiny_test(), input_size=(56, 56), num_clusters=4)
+        spr, matches = process_image_sequence(scene.images, scene.timestamps, scene.floors,
+                                              vpr_method="anyloc", device="cpu", **small)
+        salad = _build_vpr("salad", device="cpu", cluster_dim=8, token_dim=16, **small)
+        assert salad.encode_batch(scene.images[:2]).shape == (2, 48)
+        from mlis_tpu_torch.train.pretrain_vpr import load_encoder
+        for arch in ("salad", "anyloc"):
+            assert load_encoder(arch=arch, device="cpu")(scene.images[:2]).shape[0] == 2
         assert not any(m == "jax" or m.startswith(("jax.", "mlis_tpu.")) or m == "mlis_tpu"
                        for m, v in sys.modules.items() if v is not None)
         print("ok")

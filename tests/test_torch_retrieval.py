@@ -18,6 +18,7 @@ from mlis_tpu_torch.gating.place_recognition import SemanticPlaceRecognition  # 
 from mlis_tpu_torch.models.base import fit_descriptor_dim  # noqa: E402
 from mlis_tpu_torch.models.mixvpr import MixVPR  # noqa: E402
 from mlis_tpu_torch.models.resnet import ResNetConfig  # noqa: E402
+from mlis_tpu_torch.models.vit import ViTConfig  # noqa: E402
 from mlis_tpu_torch.ops import image as timage  # noqa: E402
 from mlis_tpu_torch.ops import knn as tknn  # noqa: E402
 
@@ -121,5 +122,8 @@ def test_semantic_place_recognition_builds_mixvpr_and_database():
     added = spr.add_images_batch(imgs, [0.0, 1.0, 2.0], [1, 1, 2])
     assert len(added) == 3 and spr.vpr.build_descriptor_matrix().shape == (3, 4096)
     np.testing.assert_array_equal(spr.vpr.timestamps(), [0.0, 1.0, 2.0])
-    with pytest.raises(ValueError, match="not ported"):
-        SemanticPlaceRecognition("salad", device="cpu")
+    with pytest.raises(ValueError, match="Unknown VPR method"):
+        SemanticPlaceRecognition("netvlad", device="cpu")
+    salad = SemanticPlaceRecognition("SALAD", device="cpu", input_size=(56, 56),
+                                     vit_cfg=ViTConfig.tiny_test(dtype=torch.float32))
+    assert type(salad.vpr).__name__ == "SALAD" and salad.vpr.descriptor_dim == 8448
