@@ -24,9 +24,11 @@ Phases, one line each as they end:
    2048 among its rows, a ragged S != T case, K3's size S = T = 1280, a
    1370-token ViT sequence through multi_head_attention, and path C's
    shapes (64 images x 12 heads at SALAD's 1565 and AnyLoc's 1370 tokens
-   on the slices of a packed qkv); each with its error and tolerance, its
-   time, the plain version's, the scaled_dot_product_attention
-   yardstick's, and its bound;
+   on the slices of a packed qkv), and path D's SuperGlue verify batch
+   (2 x 256 pairs x 4 heads at 2048 keypoints, each row's kv_len the
+   valid keypoints of a path D keyframe under the random SuperPoint); each
+   with its error and tolerance, its time, the plain version's, the
+   scaled_dot_product_attention yardstick's, and its bound;
 3. the main path as bench.py's default mode runs it: the sweep through
    ``gating.integration.analyze``, then ``FullGatePipeline.process`` on
    128 mono8 keyframes at 270x360 with the shipped MixVPR and LightGlue
@@ -56,11 +58,22 @@ Phases, one line each as they end:
    use_pallas=False), on CricaVPR rows that launch anything but the dense
    kernel, on a 3-seed mean F1 below 0.75 or precision below 0.9, on an
    ablation F1 not below the gated one, or on a 3-seed retrieval recall of
-   SALAD or AnyLoc not above the pixel encoder's. Then one small scene
-   drawn once and rendered on the card and on the CPU, and the harness on
-   both with the same RANSAC draws, in float32 and with the shipped bf16
-   models, held to the renderer's parity rule and to the harness's band
-   rule for each dtype;
+   SALAD or AnyLoc not above the pixel encoder's. quality2's other matcher
+   rows follow in bench.py's order, seeds 0-2 and one profiled seed-0 call
+   each: SuperGlue (reported as skipped when superglue_homog.npz is not in
+   the copy, bench.py's own rule), ORB (weight-free, verify batches of
+   256, pair by pair through ``verify``) and LoFTR (loftr_parallax.npz,
+   batches of 32); the phase fails on a missing loftr_parallax.npz, any
+   kernel launch in these rows, a LoFTR mean F1 below 0.75 or precision
+   below 0.9, an ORB mean precision below 0.9 or F1 below 0.15. Then ORB,
+   LoFTR and a random SuperGlue on four pairs of the seed-0 scene on the
+   card and on the CPU (ORB keypoints equal and descriptor bits >= 99%
+   equal, Hamming matching equal on the same words, LoFTR's matched cells
+   >= 98% shared, SuperGlue's match counts within max(3, 5%)). Then one
+   small scene drawn once and rendered on the card and on the CPU, and the
+   harness on both with the same RANSAC draws, in float32 and with the
+   shipped bf16 models, and the ORB and LoFTR rows, held to the renderer's
+   parity rule and to the harness's band rule for each;
 8. path C, the gate with the rest of the VPR menu: SALAD (476x644, 1565
    tokens, 8448-d) and AnyLoc (518x518, 1370 tokens, 49152-d), each a
    ViT-B/14 from torch.Generator(0), on phase 5's keyframes and matcher,
@@ -68,8 +81,16 @@ Phases, one line each as they end:
    batch of 64) and none on the dense kernel; then unit, finite
    descriptors of the right width, and the first 4 keyframes through each
    encoder on the card and on the CPU with the same weights (cosine
-   >= 0.999).
-Phases 5, 6 and 8 run like phase 3 (warm-up, three timed runs, one
+   >= 0.999);
+9. path D, the fullres gate with the SuperGlue head (bench.py fullres with
+   MLIS_MATCH_TOP_K=0 and MLIS_MATCHER_ARCH=superglue): phase 6's
+   keyframes, MixVPR and protocol, SuperPoint and SuperGlue random from
+   torch.Generator(0) (superglue_homog.npz is not in the copy, and
+   bench.py random-initialises without it), the keypoints' kv_len
+   distribution, 18 flash launches per verify batch, the Sinkhorn head
+   (20 log-space iterations over 256 x 2049 x 2049 float32) under its own
+   profiler range.
+Phases 5, 6, 8 and 9 run like phase 3 (warm-up, three timed runs, one
 profiled run), with every launch counter set to 0 before each run.
 
 The last two lines of standard output are the card's name and power limit
@@ -508,6 +529,39 @@ def phase_attention_check(dev) -> dict:
         record(label, "flash_attention", fields)
         del q, k, v, add
 
+    # path D: the SuperGlue head's verify batch at 2048 keypoints (2 x 256
+    # pairs x 4 heads), each row's kv_len the valid keypoints of its source
+    # keyframe under path D's random SuperPoint
+    frame_lens = path_d_keypoint_counts(dev, path_d_matcher(dev), 128 if cuda else 4)
+    BH, S = max(2048 // shrink, 8), 2048
+    lens = np.repeat(frame_lens[np.arange(BH // 4) % len(frame_lens)], 4)
+    q, k, v = randn(BH, S, 64), randn(BH, S, 64), randn(BH, S, 64)
+    kv = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, kv)
+    sync(dev)
+    if fa.flash_attention.launches != before + (1 if cuda else 0):
+        raise AssertionError("K2_pathD: flash_attention did not launch the flash kernel")
+    n = min(COMPARE_ROWS, BH)
+    fields = check_attention("K2_pathD", got[:n], fa.flash_attention_plain(q[:n], k[:n], v[:n],
+                                                                           kv[:n]), v[:n], flash=True)
+    keys = float(lens.sum())
+    bound_ms, bound_by = attention_bound(4.0 * S * 64 * keys,
+                                         2.0 * BH * S * 64 * 2 + 2.0 * keys * 64 * 2 + 4 * BH)
+    add = torch.zeros(BH, 1, 1, S, device=dev, dtype=bf16).masked_fill(
+        torch.arange(S, device=dev)[None, None, None, :] >= kv[:, None, None, None],
+        float("-inf"))
+    fields.update(
+        shape=f"BH={BH},S={S},T={S},Dh=64",
+        kv_len=f"min {int(lens.min())} median {int(np.median(lens))} max {int(lens.max())}",
+        compared_rows=n, ms=timed(lambda: fa.flash_attention(q, k, v, kv), KERNEL_REPS),
+        plain_ms=timed(lambda: fa.flash_attention_plain(q, k, v, kv), PLAIN_REPS),
+        library_ms=timed(lambda: F.scaled_dot_product_attention(
+            q[:, None], k[:, None], v[:, None], attn_mask=add), KERNEL_REPS),
+        bound_ms=bound_ms, bound_by=bound_by)
+    record("K2_pathD", "flash_attention", fields)
+    del q, k, v, add, got
+
     # a ViT sequence at 518 px (1370 tokens) through multi_head_attention:
     # its score tile exceeds 4 MiB, so it dispatches to the flash kernel
     B, H, S = max(8 // shrink, 1), 12, 1370
@@ -597,7 +651,8 @@ def build_pipeline(dev, dtype, n_kpts: int = 1024):
         device=dev)
 
 
-STAGES = ("gate.detect", "gate.encode", "gate.retrieval", "lightglue.match", "epipolar.ransac")
+STAGES = ("gate.detect", "gate.encode", "gate.retrieval", "lightglue.match", "superglue.sinkhorn",
+          "loftr.match", "orb.match", "epipolar.ransac")
 
 
 def profile_gate(dev, pipe, inputs, gen, best_wall: float, encode_batch_size: int = 128) -> None:
@@ -620,14 +675,16 @@ def profile_run(dev, run, best_wall: float) -> None:
         run()
         sync(dev)
         wall = time.perf_counter() - t0
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in dev_events if e.name not in STAGES]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    spans = {name: sum(e.time_range.elapsed_us() for e in dev_events if e.name == name)
-             for name in STAGES}
+    # the raw trace events: building the profiler's FunctionEvent tree takes
+    # minutes for a run of some 10^5 kernels (phase 7's ORB row)
+    dev_events = [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
+    kernels = [(name, us) for name, us in dev_events if name not in STAGES]
+    busy_us = sum(us for _, us in kernels)
+    spans = {name: sum(us for n, us in dev_events if n == name) for name in STAGES}
     by_kernel: dict = {}
-    for e in kernels:
-        by_kernel[e.name] = by_kernel.get(e.name, 0) + e.time_range.elapsed_us()
+    for name, us in kernels:
+        by_kernel[name] = by_kernel.get(name, 0) + us
     print(f"  profile wall_s={wall:.4f} unprofiled_wall_s={best_wall:.4f} "
           f"kernel_s={busy_us / 1e6:.4f} busy_share={busy_us / 1e6 / wall:.4f} "
           f"kernels={len(kernels)}", flush=True)
@@ -921,6 +978,71 @@ def phase_path_c(dev, args) -> dict:
     return counts
 
 
+# path D (phase 9): bench.py fullres with MLIS_MATCH_TOP_K=0 and
+# MLIS_MATCHER_ARCH=superglue. superglue_homog.npz is not in the card's copy,
+# so SuperPoint and the SuperGlue head are random-initialised, as bench.py
+# does without the checkpoint, with flax's distributions from
+# torch.Generator(0)
+PATH_D_HW = (540, 720)
+PATH_D_KEYPOINTS = 2048
+
+
+def path_d_matcher(dev):
+    from mlis_tpu_torch.models.lightglue import SuperGlue
+    from mlis_tpu_torch.models.superpoint import SuperPointConfig
+
+    return SuperGlue(sp_cfg=SuperPointConfig(max_keypoints=PATH_D_KEYPOINTS),
+                     device=dev).init_random_(0)
+
+
+def path_d_keypoint_counts(dev, matcher, n: int) -> np.ndarray:
+    """Valid keypoints per keyframe of path D's first ``n`` keyframes."""
+    from mlis_tpu_torch.ops.image import to_grayscale
+
+    images = keyframes(n, *PATH_D_HW, cell=16)[0]
+    counts = []
+    for s in range(0, n, 32):
+        gray = to_grayscale(torch.as_tensor(images[s : s + 32], device=dev))
+        counts.append(matcher.sp.detect(gray).mask.sum(1).cpu())
+    return torch.cat(counts).numpy()
+
+
+def phase_path_d(dev, args) -> dict:
+    """The fullres gate with the SuperGlue head: path B's 540x720 keyframes,
+    MixVPR and verify batches of 256, SuperPoint at 2048 keypoints all
+    matched, the random SuperGlue (depth 9, 20 Sinkhorn iterations in
+    float32); its 18 attentions per verify batch on the flash kernel."""
+    from mlis_tpu_torch.gating.full_gate import FullGatePipeline
+    from mlis_tpu_torch.gating.place_recognition import SemanticPlaceRecognition
+    from mlis_tpu_torch.gating.verification import GeometricVerifier
+    from mlis_tpu_torch.models.resnet import ResNetConfig
+
+    t0 = time.perf_counter()
+    inputs = keyframes(args.keyframes, *PATH_D_HW, cell=16)
+    matcher = path_d_matcher(dev)
+    counts = path_d_keypoint_counts(dev, matcher, len(inputs[0]))
+    spr = SemanticPlaceRecognition("mixvpr", similarity_threshold=0.3, min_time_gap=10.0,
+                                   device=dev,
+                                   backbone_cfg=ResNetConfig(crop_stage=3, dtype=torch.bfloat16))
+    pipe = FullGatePipeline(vpr=spr, verifier=GeometricVerifier(matcher=matcher),
+                            similarity_threshold=0.3, verify_batch=VERIFY_BATCH, match_top_k=None,
+                            matcher_weights=None, num_hypotheses=512, device=dev)
+    depth = matcher.cfg.depth
+    log("9 setup", t0, keyframes=len(inputs[0]), resolution="540x720",
+        detect=PATH_D_KEYPOINTS, match="all",
+        weights="vpr_mixvpr.npz+random SuperPoint/SuperGlue (torch.Generator(0))",
+        head=f"sinkhorn {matcher.cfg.sinkhorn_iterations} iterations, depth {depth}",
+        kv_len_min=int(counts.min()), kv_len_median=float(np.median(counts)),
+        kv_len_max=int(counts.max()),
+        frames_below_2048=int((counts < PATH_D_KEYPOINTS).sum()))
+
+    def expected(res):
+        return {"tri_count": 0, "dense_attention": 0,
+                "flash_attention": 2 * depth * -(-res.verified // VERIFY_BATCH)}
+
+    return drive_gate_path("9", dev, pipe, inputs, expected)
+
+
 def phase_card_vs_cpu(dev) -> None:
     t0 = time.perf_counter()
     images, timestamps, floors, K = keyframes(SMALL_KEYFRAMES)
@@ -1016,6 +1138,176 @@ def compare_decisions(a: dict, b: dict, bands: dict, what: str) -> dict:
     return stats
 
 
+# quality2's other matcher rows (bench.py:763-800), in bench.py's order after
+# the LightGlue row; dense LoFTR verifies in batches of 32, the rest of 256
+MATCHER_ROWS = (("superglue", VERIFY_BATCH), ("orb", VERIFY_BATCH), ("loftr", 32))
+# 3-seed means each row must reach (the JAX package's scoreboard on other
+# scenes of the distribution: LoFTR 0.868 / 0.943, ORB 0.279 / 1.000)
+MATCHER_FLOORS = {"loftr": dict(f1=0.75, precision=0.9), "orb": dict(f1=0.15, precision=0.9)}
+# card against CPU on the small scene: decision_drift's bands (the tier-1
+# bands of tests/test_torch_quality_matchers.py)
+SUPERGLUE_SCORE_ATOL = 2.0**-5
+MATCHER_BANDS = {"orb": dict(conf_band=0, inlier_band=9, bound_inliers=False, confident_cut=None),
+                 "loftr": dict(conf_band=0, inlier_band=3, bound_inliers=False,
+                               confident_cut=None)}
+
+
+def matcher_row_weights(family: str):
+    """(weights path or None, skip reason or None) as bench.py quality2
+    chooses them: SuperGlue only when its homography checkpoint is shipped
+    (bench.py:765), then the parallax one; LoFTR from loftr_parallax.npz."""
+    import os
+
+    from mlis_tpu_torch.weights import (
+        default_parallax_loftr_checkpoint,
+        default_parallax_superglue_checkpoint,
+        default_superglue_checkpoint,
+    )
+
+    if family == "superglue":
+        if default_superglue_checkpoint() is None:
+            return None, "checkpoint not in the card's copy"
+        return default_parallax_superglue_checkpoint(), None
+    if family == "loftr":
+        path = default_parallax_loftr_checkpoint()
+        if path is None or os.path.basename(path) != "loftr_parallax.npz":
+            raise AssertionError("phase 7: checkpoints/loftr_parallax.npz is missing")
+        return path, None
+    return None, None
+
+
+def phase_quality_matchers(dev, scenes) -> dict:
+    """quality2's SuperGlue, ORB and LoFTR rows on phase 7's scenes, seeds
+    0-2, then one profiled seed-0 call per row; no kernel launches."""
+    from mlis_tpu_torch.eval import quality as tq
+
+    cuda = dev.type == "cuda"
+    rows = {}
+    for fam, vb in MATCHER_ROWS:
+        t0 = time.perf_counter()
+        weights, skip = matcher_row_weights(fam)
+        if skip:
+            log(f"7 {fam} row", t0, skipped=json.dumps(skip))
+            rows[f"{fam}_skipped"] = skip
+            continue
+        kw = dict(QUALITY, verify_batch=vb, weights_path=weights, device=dev)
+        reset_launch_counts()
+        runs, calls = {}, {}
+        for seed in QUALITY_SEEDS:
+            t0 = time.perf_counter()
+            out = runs[seed] = tq.run_gate_quality(fam, scene=scenes[seed], **kw)
+            calls[seed] = time.perf_counter() - t0
+            log(f"7 {fam} seed {seed}", t0, weights=out["weights"], f1=out["f1"],
+                precision=out["precision"], recall=out["recall"],
+                candidates=out["total_candidates"], verified=out["verified"],
+                accepted=out["geometrically_valid"], gate_s=f"{out['elapsed_s']:.4f}",
+                harness_call_s=f"{calls[seed]:.4f}")
+        counts = launch_counts()
+        if any(counts.values()):
+            raise AssertionError(f"phase 7: the {fam} row launched a kernel: {counts}")
+        if cuda:
+            profile_run(dev, lambda: tq.run_gate_quality(fam, scene=scenes[0], **kw), calls[0])
+        f1s = [runs[s]["f1"] for s in QUALITY_SEEDS]
+        precs = [runs[s]["precision"] for s in QUALITY_SEEDS]
+        row = {f"f1_{fam}": round(float(np.mean(f1s)), 3),
+               f"f1_{fam}_min": round(float(np.min(f1s)), 3),
+               f"precision_{fam}": round(float(np.mean(precs)), 3),
+               f"recall_{fam}": round(float(np.mean([runs[s]["recall"] for s in QUALITY_SEEDS])),
+                                      3)}
+        rows.update(row)
+        log(f"7 {fam} row", t0, weights=runs[0]["weights"], mean_f1=float(np.mean(f1s)),
+            mean_precision=float(np.mean(precs)), row=json.dumps(row, separators=(",", ":")),
+            harness_s=",".join(f"{calls[s]:.4f}" for s in QUALITY_SEEDS),
+            launches=json.dumps(counts, separators=(",", ":")))
+        floor = MATCHER_FLOORS.get(fam)
+        if cuda and floor and (np.mean(f1s) < floor["f1"] or
+                               np.mean(precs) < floor["precision"]):
+            raise AssertionError(f"phase 7: {fam} mean F1 {np.mean(f1s)} (needs {floor['f1']}), "
+                                 f"mean precision {np.mean(precs)} (needs {floor['precision']})")
+    return rows
+
+
+def phase_matchers_card_vs_cpu(dev, scene) -> None:
+    """The new matchers on a few pairs of phase 7's seed-0 scene, on the
+    card and on the CPU: ORB's front end (coordinates and validity equal,
+    descriptor bits at least 99% equal) and its Hamming matching on the
+    same words (equal); LoFTR (loftr_parallax.npz, bf16): at least 98% of
+    each pair's matched coarse cells shared; SuperGlue (random weights from
+    torch.Generator(0), 512 keypoints, bf16) on the same keypoints: match
+    counts within the bf16 band, max(3, 5%), and scores within 2^-5 (the
+    tier-1 band of the bf16 head, tests/test_torch_superglue.py)."""
+    from mlis_tpu_torch.models import orb
+    from mlis_tpu_torch.models.lightglue import SuperGlue, extract_matches
+    from mlis_tpu_torch.models.loftr import LoFTR, LoFTRConfig
+    from mlis_tpu_torch.models.superpoint import SuperPointConfig
+    from mlis_tpu_torch.ops.image import to_grayscale
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    pairs = sorted(scene.gt_pairs)[:4]
+    q, m = (np.asarray([p[i] for p in pairs]) for i in (0, 1))
+    gray = to_grayscale(torch.as_tensor(scene.images[np.concatenate([q, m])]))  # (8, H, W, 1)
+    fields = {}
+    # ORB
+    out = {d: orb.orb_detect_describe(gray[..., 0].to(d)) for d in (dev, cpu)}
+    (c_d, w_d, v_d), (c_c, w_c, v_c) = ([x.cpu() for x in out[d]] for d in (dev, cpu))
+    if not (torch.equal(c_d, c_c) and torch.equal(v_d, v_c)):
+        raise AssertionError("7 matchers: ORB keypoints differ between the card and the CPU")
+    bits = (((w_d ^ w_c)[v_c][:, :, None] >> torch.arange(32)) & 1).float().mean()
+    fields["orb_bits_equal"] = 1.0 - float(bits)
+    if fields["orb_bits_equal"] < 0.99:
+        raise AssertionError(f"7 matchers: ORB descriptor bits equal {fields['orb_bits_equal']}")
+    n = len(pairs)
+    for p in range(n):
+        got = orb.hamming_mutual_match(w_c[p].to(dev), v_c[p].to(dev), w_c[n + p].to(dev),
+                                       v_c[n + p].to(dev))
+        want = orb.hamming_mutual_match(w_c[p], v_c[p], w_c[n + p], v_c[n + p])
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+            raise AssertionError("7 matchers: Hamming matching differs on the same words")
+    fields["orb_keypoints"] = int(v_c.sum())
+    # LoFTR
+    from mlis_tpu_torch.weights import default_parallax_loftr_checkpoint
+
+    shares = []
+    res = {}
+    for d in (dev, cpu):
+        lf = LoFTR(LoFTRConfig(match_threshold=0.05), device=d)
+        lf.load_weights(default_parallax_loftr_checkpoint())
+        res[d] = [x.cpu() for x in lf.match_batch(gray[:n].to(d), gray[n:].to(d))]
+    for p in range(n):
+        cells = [{tuple(x) for x in res[d][0][p][res[d][3][p]].round().tolist()} for d in (dev, cpu)]
+        shares.append(len(cells[0] & cells[1]) / max(len(cells[0]), len(cells[1]), 1))
+    fields["loftr_cells_shared_min"] = min(shares)
+    fields["loftr_matches"] = ",".join(str(int(res[d][3].sum())) for d in (dev, cpu))
+    if min(shares) < 0.98:
+        raise AssertionError(f"7 matchers: LoFTR matched cells shared {shares}")
+    # SuperGlue, random weights at 512 keypoints: the same keypoints (detected
+    # on the CPU) through the matcher on both devices
+    sgs = {d: SuperGlue(sp_cfg=SuperPointConfig(max_keypoints=512), device=d).init_random_(0)
+           for d in (dev, cpu)}
+    kps = [sgs[cpu].sp.detect(gray[:n]), sgs[cpu].sp.detect(gray[n:])]
+    scores, counts, mutual = {}, {}, {}
+    for d, sg in sgs.items():
+        k0, k1 = (kp.map(lambda x: x.to(d)) for kp in kps)
+        sc = sg.net(k0.descriptors, k0.coords, k0.mask, k1.descriptors, k1.coords, k1.mask,
+                    tuple(gray.shape[1:3]))
+        scores[d] = sc.float().cpu()
+        counts[d] = extract_matches(sc, k0.mask, k1.mask, sg.cfg.match_threshold).valid.sum(1).cpu()
+        mutual[d] = extract_matches(sc, k0.mask, k1.mask, 0.0).valid.sum(1).cpu()
+    diff = (counts[dev] - counts[cpu]).abs()
+    band = torch.clamp(0.05 * counts[cpu].float(), min=3.0)
+    score_err = float((scores[dev] - scores[cpu]).abs().max())
+    fields.update(superglue_matches=",".join(f"{int(a)}/{int(b)}" for a, b in
+                                             zip(counts[dev], counts[cpu])),
+                  superglue_mutual_unthresholded=",".join(f"{int(a)}/{int(b)}" for a, b in
+                                                          zip(mutual[dev], mutual[cpu])),
+                  superglue_score_max_abs_err=score_err,
+                  superglue_score_max=float(scores[cpu].max()))
+    if bool((diff.float() > band).any()) or score_err > SUPERGLUE_SCORE_ATOL:
+        raise AssertionError(f"7 matchers: SuperGlue card vs cpu: {fields}")
+    log("7 matchers card vs cpu", t0, pairs=n, **fields)
+
+
 def phase_quality(dev) -> dict:
     """bench.py quality2 on v2 scenes drawn on the device: the LightGlue
     row for 3 seeds, the no-floor-gate ablation, every encoder's retrieval
@@ -1083,6 +1375,8 @@ def phase_quality(dev) -> dict:
         # the whole harness call (verifier and encoder set-up, the gate, the
         # retrieval-recall encode) for seed 0 under the profiler
         profile_run(dev, lambda: gate(sc0), calls[0])
+    matcher_rows = phase_quality_matchers(dev, scenes)
+    phase_matchers_card_vs_cpu(dev, sc0)
     t0 = time.perf_counter()
     no_gate = gate(sc0, floor_gate=False)
     log("7 no floor gate, seed 0", t0, f1=no_gate["f1"], precision=no_gate["precision"],
@@ -1170,6 +1464,7 @@ def phase_quality(dev) -> dict:
         "recall_trained": round(float(np.mean([runs[s]["recall"] for s in QUALITY_SEEDS])), 3),
         "f1_no_floor_gate": round(no_gate["f1"], 3),
         "precision_no_floor_gate": round(no_gate["precision"], 3),
+        **matcher_rows,
         **{f"rr_{name}": round(m["retrieval_recall"], 3) for name, m in rr.items()},
         **crica_rows,
     }
@@ -1223,6 +1518,16 @@ def phase_quality_card_vs_cpu(dev) -> None:
         fields.update({f"{name}_accepted_card": out[dev]["geometrically_valid"],
                        f"{name}_accepted_cpu": out[cpu]["geometrically_valid"],
                        **{f"{name}_{k}": v for k, v in drift.items()}})
+    # quality2's ORB and LoFTR rows (bf16 LoFTR, as shipped), the same draws
+    for fam, vb in MATCHER_ROWS[1:]:
+        weights, _ = matcher_row_weights(fam)
+        fam_kw = dict(kw, verify_batch=vb, weights_path=weights)
+        out = {d: tq.run_gate_quality(fam, device=d, **fam_kw) for d in {dev, cpu}}
+        drift = compare_decisions(out[dev], out[cpu], MATCHER_BANDS[fam],
+                                  f"phase 7 {fam} row, card vs cpu")
+        fields.update({f"{fam}_accepted_card": out[dev]["geometrically_valid"],
+                       f"{fam}_accepted_cpu": out[cpu]["geometrically_valid"],
+                       **{f"{fam}_{k}": v for k, v in drift.items()}})
     log("7 card vs cpu", t0, pixels_within_one_level=share,
         pixels_equal=float((scenes[dev].images == scenes[cpu].images).mean()),
         candidates=total, verified=total - rejected, **fields)
@@ -1252,6 +1557,7 @@ def main() -> int:
         quality = phase_quality(dev)
         phase_quality_card_vs_cpu(dev)
         path_c = phase_path_c(dev, args)
+        path_d = phase_path_d(dev, args)
     signal.alarm(0)
     print(f"[total] {time.perf_counter() - t_all:.3f}s", flush=True)
     if dev.type != "cuda":
@@ -1275,9 +1581,11 @@ def main() -> int:
         "source": "mlis_tpu_torch/csrc/attention.cu",
         "replaces": "mlis_tpu/ops/flash_attention.py:31, mlis_tpu/ops/flash_attention.py:80",
         # one gate run of each path that reaches it
-        "launches": path_b["flash_attention"] + sum(c["flash_attention"] for c in path_c.values()),
+        "launches": (path_b["flash_attention"] + sum(c["flash_attention"] for c in path_c.values())
+                     + path_d["flash_attention"]),
         "launches_by_path": {"B": path_b["flash_attention"],
-                             **{f"C_{m}": c["flash_attention"] for m, c in path_c.items()}},
+                             **{f"C_{m}": c["flash_attention"] for m, c in path_c.items()},
+                             "D": path_d["flash_attention"]},
         **attn["flash_attention"],
     }, {
         "name": "dense_attention",

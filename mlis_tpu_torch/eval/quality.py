@@ -1,7 +1,7 @@
 """Gate decision quality: loop-closure precision, recall and F1 on synthetic
 multi-floor scenes with known ground truth.
 
-Counterpart of ``mlis_tpu/eval/quality.py`` for the LightGlue, retrieval
+Counterpart of ``mlis_tpu/eval/quality.py`` for the matcher, retrieval
 and CricaVPR-rerank rows of ``bench.py``'s ``quality2`` mode:
 
 * scenes: ``make_quality_scene`` (v1, one homography per revisit) and
@@ -14,8 +14,9 @@ and CricaVPR-rerank rows of ``bench.py``'s ``quality2`` mode:
   to the render step;
 * scoring: ``score_gate_decisions``, ``retrieval_recall`` and
   ``retrieval_metrics`` (with the CricaVPR rerank);
-* ``build_verifier`` for the ``"trained"`` and ``"random"`` LightGlue
-  families, and ``run_gate_quality``, which renders or takes a scene, runs
+* ``build_verifier`` for every matcher family (LightGlue ``"trained"``
+  and ``"random"``, ``"superglue"``, ``"loftr"``, ``"orb"``), and
+  ``run_gate_quality``, which renders or takes a scene, runs
   ``FullGatePipeline.process`` and scores its decisions;
   ``run_gate_quality_rerank`` scores the same flow with the CricaVPR
   rerank in its retrieval stage.
@@ -455,10 +456,11 @@ def retrieval_metrics(
 
 
 # calibrated SuperGlue-family confident-match cut (mlis_tpu's v2 seeds 0-3,
-# validated on 4-7); kept for the SuperGlue row, which is not ported yet
+# validated on 4-7)
 SUPERGLUE_CONFIDENT_CUT = 16
-
-_UNPORTED_MATCHERS = ("orb", "superglue", "loftr")
+# the coarse threshold of the shipped LoFTR checkpoints: they are
+# conservative, so a low threshold buys recall (mlis_tpu's quality runs)
+LOFTR_TRAINED_MATCH_THRESHOLD = 0.05
 
 
 def build_verifier(
@@ -467,29 +469,66 @@ def build_verifier(
     hw: Tuple[int, int],
     weights_path: Optional[str] = None,
     min_confident_matches: int = 6,
+    loftr_match_threshold: Optional[float] = None,
     device="cuda",
     model_dtype: torch.dtype = torch.bfloat16,
 ):
-    """(GeometricVerifier, weights label) for a matcher family: "trained"
-    loads the shipped LightGlue checkpoint (the 540x720-trained one when
-    hw is 540 rows or more; ``weights_path`` overrides), with its
-    structure read from the npz; "random" keeps a random initialisation.
-    A pair is accepted only with at least ``min_confident_matches``
-    matches of score >= 0.5. ``model_dtype`` is SuperPoint's and
-    LightGlue's compute dtype: bf16 as shipped, float32 for parity checks."""
+    """(GeometricVerifier, weights label) for a matcher family:
+
+    * "trained" loads the shipped LightGlue checkpoint (the 540x720-trained
+      one when hw is 540 rows or more; ``weights_path`` overrides), its
+      structure read from the npz; "random" keeps a random initialisation;
+      both accept a pair only with at least ``min_confident_matches``
+      matches of score >= 0.5;
+    * "superglue" loads ``weights_path`` or the homography-trained
+      SuperGlue, with the family's confident cut of 16;
+    * "loftr" loads ``weights_path`` or the homography-trained LoFTR, with
+      the coarse threshold ``loftr_match_threshold`` (0.05 when a checkpoint
+      loads, else the config's 0.2);
+    * "orb" is weight-free ("orb_weight_free").
+
+    Without its checkpoint a family keeps a random initialisation and
+    reports "random_init". ``model_dtype`` is the learned models' compute
+    dtype: bf16 as shipped, float32 for parity checks."""
     from mlis_tpu_torch.gating.verification import GeometricVerifier
-    from mlis_tpu_torch.models.lightglue import LightGlue, MatcherConfig
+    from mlis_tpu_torch.models.lightglue import LightGlue, MatcherConfig, SuperGlue
     from mlis_tpu_torch.models.superpoint import SuperPointConfig
     from mlis_tpu_torch.weights import (
         default_fullres_matcher_checkpoint,
+        default_loftr_checkpoint,
         default_matcher_checkpoint,
+        default_superglue_checkpoint,
         matcher_arch_from_npz,
     )
 
-    if matcher in _UNPORTED_MATCHERS:
-        raise ValueError(
-            f"matcher family {matcher!r} is not ported to mlis_tpu_torch yet (ROADMAP Queue 1, "
-            "the other matcher families in build_verifier); available: trained, random")
+    if matcher == "orb":
+        from mlis_tpu_torch.models.orb import ORBMatcher
+
+        return GeometricVerifier(matcher=ORBMatcher(device=device)), "orb_weight_free"
+    if matcher == "loftr":
+        from mlis_tpu_torch.models.loftr import LoFTR, LoFTRConfig
+
+        path = weights_path or default_loftr_checkpoint()
+        have = bool(path and os.path.exists(path))
+        if loftr_match_threshold is None and have:
+            loftr_match_threshold = LOFTR_TRAINED_MATCH_THRESHOLD
+        cfg = LoFTRConfig(dtype=model_dtype)
+        if loftr_match_threshold is not None:
+            cfg = dataclasses.replace(cfg, match_threshold=loftr_match_threshold)
+        lf, weights = LoFTR(cfg, device=device), "random_init"
+        if have:
+            lf.load_weights(path, image_hw=hw)
+            weights = os.path.basename(path)
+        return GeometricVerifier(matcher=lf), weights
+    if matcher == "superglue":
+        sg = SuperGlue(sp_cfg=SuperPointConfig(max_keypoints=max_keypoints, dtype=model_dtype),
+                       matcher_cfg=MatcherConfig.superglue(dtype=model_dtype), device=device)
+        weights = "random_init"
+        path = weights_path or default_superglue_checkpoint()
+        if path and os.path.exists(path):
+            sg.load_weights(path, image_hw=hw)
+            weights = os.path.basename(path)
+        return GeometricVerifier(matcher=sg, min_confident_matches=SUPERGLUE_CONFIDENT_CUT), weights
     if matcher not in ("trained", "random"):
         raise ValueError(f"unknown matcher family {matcher!r}")
     weights, path = "random_init", None
@@ -547,7 +586,7 @@ def _encoder_for(encoder: str, device):
 
 
 def run_gate_quality(
-    matcher: str = "trained",  # 'trained' | 'random'
+    matcher: str = "trained",  # 'trained' | 'random' | 'orb' | 'loftr' | 'superglue'
     # 'trained_vpr' | 'trained_vpr_v2' | 'pixel' | 'cricavpr_trained' |
     # 'mixvpr_trained', or a VPR method the gate builds itself
     encoder: str = "trained_vpr",
@@ -565,6 +604,7 @@ def run_gate_quality(
     match_top_k: Optional[int] = None,
     ransac_subset: int = 0,
     min_confident_matches: int = 6,
+    loftr_match_threshold: Optional[float] = None,
     return_pairs: bool = False,
     ransac_uniforms: Optional[torch.Tensor] = None,
     model_dtype: torch.dtype = torch.bfloat16,
@@ -577,14 +617,14 @@ def run_gate_quality(
     per-pair outcomes, when ``return_pairs``; each also carries its inlier
     ratio, which the reference's pairs leave out). ``ransac_uniforms`` goes
     straight to ``FullGatePipeline.process``: (n_survivors, 512, 8) draws,
-    one block per survivor in compaction order. ``model_dtype`` goes to
-    ``build_verifier``."""
+    one block per survivor in compaction order. ``model_dtype`` and
+    ``loftr_match_threshold`` go to ``build_verifier``."""
     from mlis_tpu_torch.gating.full_gate import FullGatePipeline
 
     scene = scene or make_quality_scene(n_places=n_places, hw=hw, seed=seed, device=device)
     verifier, weights = build_verifier(matcher, max_keypoints, hw, weights_path,
-                                       min_confident_matches, device=device,
-                                       model_dtype=model_dtype)
+                                       min_confident_matches, loftr_match_threshold,
+                                       device=device, model_dtype=model_dtype)
     enc_fn, encoder = _encoder_for(encoder, device)
     common = dict(
         verifier=verifier, top_k=top_k, similarity_threshold=similarity_threshold,
@@ -738,24 +778,30 @@ def run_gate_quality_rerank(
     }
 
 
-# the cuts a LightGlue-row decision is made at: the harness's confident-match
-# cut and GeometricVerifier's inlier count and inlier ratio
-DECISION_CUTS = {"num_confident_matches": 6, "num_inliers": 20, "inlier_ratio": 0.25}
+# the cuts a decision is made at: GeometricVerifier's inlier count and
+# inlier ratio, and each family's confident-match cut (None where the
+# matcher reports no confident count: LoFTR, ORB)
+DECISION_CUTS = {"num_inliers": 20, "inlier_ratio": 0.25}
+CONFIDENT_CUTS = {"trained": 6, "random": 6, "superglue": SUPERGLUE_CONFIDENT_CUT,
+                  "loftr": None, "orb": None}
 RATIO_BAND = 0.01
 
 
 def decision_drift(a: List[Dict], b: List[Dict], conf_band: int, inlier_band: int,
-                   bound_inliers: bool) -> Tuple[Dict, List[Tuple[Dict, Dict]]]:
+                   bound_inliers: bool, confident_cut: Optional[int] = 6,
+                   ) -> Tuple[Dict, List[Tuple[Dict, Dict]]]:
     """Two runs' ``pairs`` on the same verified pairs, held to the band rule.
 
     Confident matches must agree within ``conf_band``. A decision may differ
     only where a count of either run lies in the band around its cut:
-    ``conf_band`` of 6 confident matches, ``inlier_band`` of 20 inliers or
-    0.01 of a 0.25 inlier ratio (a pair without ``inlier_ratio``, as the
-    JAX package's are, is judged on its counts). With ``bound_inliers``,
-    inliers must also agree within ``inlier_band`` on every pair that
-    reaches the confident cut in either run. Returns the drift and the
-    pairs that break the rule."""
+    ``conf_band`` of the family's ``confident_cut`` (6 for LightGlue, 16 for
+    SuperGlue, None for a family without confident counts), ``inlier_band``
+    of 20 inliers or 0.01 of a 0.25 inlier ratio (a pair without
+    ``inlier_ratio``, as the JAX package's are, is judged on its counts).
+    With ``bound_inliers``, inliers must also agree within ``inlier_band``
+    on every pair that reaches the confident cut in either run (every pair
+    when there is no cut). Returns the drift and the pairs that break the
+    rule."""
     if [(p["q"], p["m"]) for p in a] != [(p["q"], p["m"]) for p in b]:
         raise ValueError("the two runs verified different pairs")
     cuts = DECISION_CUTS
@@ -765,12 +811,16 @@ def decision_drift(a: List[Dict], b: List[Dict], conf_band: int, inlier_band: in
     for x, y in zip(a, b):
         conf_diff = abs(x["num_confident_matches"] - y["num_confident_matches"])
         inl_diff = abs(x["num_inliers"] - y["num_inliers"])
-        past_cut = max(x["num_confident_matches"],
-                       y["num_confident_matches"]) >= cuts["num_confident_matches"]
-        band = any(abs(p["num_confident_matches"] - cuts["num_confident_matches"]) <= conf_band
-                   or abs(p["num_inliers"] - cuts["num_inliers"]) <= inlier_band
-                   or abs(p.get("inlier_ratio", np.inf) - cuts["inlier_ratio"]) <= RATIO_BAND
-                   for p in (x, y))
+        if confident_cut is None:
+            past_cut, near_conf = True, False
+        else:
+            past_cut = max(x["num_confident_matches"],
+                           y["num_confident_matches"]) >= confident_cut
+            near_conf = any(abs(p["num_confident_matches"] - confident_cut) <= conf_band
+                            for p in (x, y))
+        band = near_conf or any(abs(p["num_inliers"] - cuts["num_inliers"]) <= inlier_band
+                                or abs(p.get("inlier_ratio", np.inf) - cuts["inlier_ratio"])
+                                <= RATIO_BAND for p in (x, y))
         stats["pairs_in_band"] += band
         stats["decisions_differing"] += x["is_valid"] != y["is_valid"]
         stats["max_confident_diff"] = max(stats["max_confident_diff"], conf_diff)

@@ -11,13 +11,19 @@ Counterpart of the standard two-phase path of
    above the similarity threshold, the strict floor gate and survivor
    compaction in ascending (lo, hi) order -- all on the device
    (:func:`_gate_compact`);
-3. LightGlue matching + essential RANSAC + cheirality pose on the
-   survivors, in batches of ``verify_batch`` pairs.
+3. LightGlue (or SuperGlue) matching + essential RANSAC + cheirality pose
+   on the survivors' pre-detected keypoints, in batches of
+   ``verify_batch`` pairs. A matcher without ``make_fused_match_verify``
+   (LoFTR, ORB) instead gets the survivors' grayscale pairs (the keyframes
+   converted once) through ``GeometricVerifier.verify_pairs_batch`` with
+   ``batch_size=verify_batch``; no keypoints are detected up front.
 
 The fused-budget, mega and pipelined-mega variants of the JAX package are
 not ported yet. Each stage runs inside a ``torch.profiler`` range
-(``gate.detect``, ``gate.encode``, ``gate.retrieval``, ``lightglue.match``,
-``epipolar.ransac``) so that a profile attributes device time to stages.
+(``gate.detect``, ``gate.encode``, ``gate.retrieval``, ``lightglue.match``
+with ``superglue.sinkhorn`` inside it for SuperGlue, ``loftr.match``,
+``orb.match``, ``epipolar.ransac``) so that a profile attributes device time
+to stages.
 """
 
 from __future__ import annotations
@@ -180,7 +186,7 @@ class FullGatePipeline:
 
             auto = matcher_weights == "auto"
             path = default_matcher_checkpoint() if auto else matcher_weights
-            if path and os.path.exists(path):
+            if path and os.path.exists(path) and hasattr(self.verifier.matcher, "load_weights"):
                 try:
                     self.verifier.matcher.load_weights(path)
                     self.matcher_weights_loaded = path
@@ -215,8 +221,9 @@ class FullGatePipeline:
 
         # 1) keypoints once per keyframe + VPR descriptors, device-resident
         imgs = torch.as_tensor(np.ascontiguousarray(images), device=dev)
+        fused_ok = verify and hasattr(self.verifier.matcher, "make_fused_match_verify")
         with record_function("gate.detect"):
-            kp_all = self._detect_all(imgs) if verify else None
+            kp_all = self._detect_all(imgs) if fused_ok else None
         encode_dev = getattr(self.spr.vpr, "encode_batch_device", None)
         if encode_dev is not None:
             with record_function("gate.encode"):
@@ -251,11 +258,16 @@ class FullGatePipeline:
             res.elapsed_s = time.perf_counter() - t_start
             return res
 
-        # 4) fused match + RANSAC + pose over the survivors
+        # 4) match + RANSAC + pose over the survivors: fused over the
+        # detected keypoints, or pair batches of grayscale images
         if verify and qi.numel():
             t0 = time.perf_counter()
             hw = (int(imgs.shape[1]), int(imgs.shape[2]))
-            res.results = self._verify_survivors(kp_all, qi, mi, K, hw, ransac_uniforms, generator)
+            if fused_ok:
+                res.results = self._verify_survivors(kp_all, qi, mi, K, hw, ransac_uniforms,
+                                                     generator)
+            else:
+                res.results = self._verify_gray_pairs(imgs, qi, mi, K, ransac_uniforms, generator)
             res.verify_s = time.perf_counter() - t0
             res.verified = len(res.results)
             res.geometrically_valid = sum(1 for r in res.results if r.is_valid)
@@ -280,6 +292,20 @@ class FullGatePipeline:
                 kp = kp.map(lambda x: x[:, :top_m])
             kps.append(kp)
         return Keypoints(*(torch.cat(parts) for parts in zip(*kps)))
+
+    def _verify_gray_pairs(self, imgs, qi, mi, K, uniforms, generator) -> List[MatchResult]:
+        """Survivors as grayscale pairs through ``verify_pairs_batch`` in
+        chunks of ``verify_batch`` (LoFTR, ORB)."""
+        S = qi.numel()
+        if uniforms is not None and tuple(uniforms.shape) != (S, self.num_hypotheses, 8):
+            raise ValueError(
+                f"ransac_uniforms must be {(S, self.num_hypotheses, 8)}, got {tuple(uniforms.shape)}"
+            )
+        gray = to_grayscale(imgs)
+        pairs = torch.stack([qi, mi], 1).cpu().numpy()
+        return self.verifier.verify_pairs_batch(
+            gray[qi], gray[mi], K, indices=[(int(a), int(b)) for a, b in pairs],
+            batch_size=self.verify_batch, uniforms=uniforms, generator=generator)
 
     def _get_fused(self, hw, K):
         key = (hw, float(np.asarray(K)[0, 0]), self.num_hypotheses, self.ransac_subset)

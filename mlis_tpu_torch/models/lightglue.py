@@ -1,7 +1,6 @@
 """LightGlue matcher: fixed-depth batched transformer over SuperPoint keypoints.
 
-Counterpart of ``mlis_tpu/models/lightglue.py`` (the dual-softmax head;
-the Sinkhorn/SuperGlue head is not ported yet):
+Counterpart of ``mlis_tpu/models/lightglue.py``, both heads:
 
 * keypoints are normalised by half the larger image side; a learnable
   Fourier rotary encoding rotates interleaved (even, odd) feature pairs of
@@ -10,8 +9,13 @@ the Sinkhorn/SuperGlue head is not ported yet):
   images on one (2B, K, D) batch; the cross source is the batch rolled by B;
 * padding is a suffix (keypoints are score-sorted), so attention masks keys
   at positions >= kv_len;
-* the head is dual softmax times sigmoid matchability; matches are mutual
-  argmax above the threshold (0.1).
+* LightGlue's head is dual softmax times sigmoid matchability; matches are
+  mutual argmax above the threshold (0.1);
+* SuperGlue's head (``assignment="sinkhorn"``) is 20 log-space Sinkhorn
+  iterations with a learnable dustbin (``ops/sinkhorn.sinkhorn_with_dustbin``)
+  on the similarities, those of a masked keypoint set to -1e9 so that they
+  stay finite in the log-sum-exp; the marginals count every padded slot, as
+  in the JAX package; matches are mutual argmax above 0.2.
 
 Attention at matcher sizes is plain tensor code, as in the JAX package
 (which sends it to XLA's dense attention up to Kx*Ks = 1024^2): logits in
@@ -35,9 +39,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from mlis_tpu_torch.models.layers import Dense, LayerNorm
+from mlis_tpu_torch.gating.verification import BaseFeatureMatcher
+from mlis_tpu_torch.models.layers import Dense, LayerNorm, flax_init_
 from mlis_tpu_torch.models.superpoint import Keypoints, SuperPoint, SuperPointConfig
 from mlis_tpu_torch.ops.flash_attention import flash_mha
+from mlis_tpu_torch.ops.image import to_grayscale
+from mlis_tpu_torch.ops.sinkhorn import sinkhorn_with_dustbin
 from mlis_tpu_torch.weights import load_npz, matcher_arch_from_npz
 
 FLASH_MIN_PRODUCT = 1024 * 1024  # Kx * Ks above which the reference uses flash attention
@@ -51,10 +58,18 @@ class MatcherConfig:
     num_heads: int = 4
     depth: int = 9
     match_threshold: float = 0.1
+    assignment: str = "dual_softmax"  # 'dual_softmax' (LightGlue) | 'sinkhorn' (SuperGlue)
+    sinkhorn_iterations: int = 20
     dtype: torch.dtype = torch.bfloat16
 
     @staticmethod
     def lightglue(**kw) -> "MatcherConfig":
+        return MatcherConfig(**kw)
+
+    @staticmethod
+    def superglue(**kw) -> "MatcherConfig":
+        kw.setdefault("assignment", "sinkhorn")
+        kw.setdefault("match_threshold", 0.2)
         return MatcherConfig(**kw)
 
     @staticmethod
@@ -166,7 +181,10 @@ class MatcherNet(nn.Module):
             for _ in range(cfg.depth)
         )
         self.final_proj = Dense(cfg.dim, cfg.dim, dtype=dt)
-        self.matchability = Dense(cfg.dim, 1, dtype=torch.float32)
+        if cfg.assignment == "sinkhorn":
+            self.dustbin = nn.Parameter(torch.ones(()))
+        else:
+            self.matchability = Dense(cfg.dim, 1, dtype=torch.float32)
 
     def forward(self, d0, c0, m0, d1, c1, m1, image_hw):
         """d: (B, K, Dd) descriptors, c: (B, K, 2) coords, m: (B, K) masks ->
@@ -191,9 +209,15 @@ class MatcherNet(nn.Module):
         f0, f1 = fc[:B], fc[B:]
         sim = torch.einsum("bkd,bld->bkl", f0.to(torch.float32), f1.to(torch.float32))
         sim = sim / (self.cfg.dim**0.5)
+        mask2d = m0[:, :, None] & m1[:, None, :]
+        if self.cfg.assignment == "sinkhorn":
+            with record_function("superglue.sinkhorn"):
+                sim = sim.masked_fill_(~mask2d, -1e9)  # in place: B x K x K float32
+                log_p = sinkhorn_with_dustbin(sim, self.dustbin, self.cfg.sinkhorn_iterations)
+                del sim
+                return torch.exp(log_p[:, :-1, :-1])[:, :K0, :K1]
         z0 = self.matchability(f0)[..., 0]
         z1 = self.matchability(f1)[..., 0]
-        mask2d = m0[:, :, None] & m1[:, None, :]
         sim_m = torch.where(mask2d, sim, torch.full_like(sim, -1e30))
         p = torch.softmax(sim_m, dim=2) * torch.softmax(sim_m, dim=1)
         scores = p * torch.sigmoid(z0)[:, :, None] * torch.sigmoid(z1)[:, None, :]
@@ -217,9 +241,11 @@ def extract_matches(scores, m0, m1, threshold: float) -> Matches:
     )
 
 
-class LightGlue:
+class LightGlue(BaseFeatureMatcher):
     """SuperPoint + fixed-depth LightGlue, batched over pairs."""
 
+    matcher_cfg_factory = staticmethod(MatcherConfig.lightglue)
+    # match confidences are probabilities: the scale of the confident cut
     confidence_is_calibrated = True
 
     def __init__(
@@ -230,21 +256,23 @@ class LightGlue:
     ):
         self.device = torch.device(device)
         self.sp = SuperPoint(sp_cfg or SuperPointConfig(), device=self.device)
-        self.cfg = matcher_cfg or MatcherConfig(descriptor_dim=self.sp.cfg.descriptor_dim)
+        self.cfg = matcher_cfg or type(self).matcher_cfg_factory(
+            descriptor_dim=self.sp.cfg.descriptor_dim)
         self.net = MatcherNet(self.cfg).to(self.device).eval()
 
     @classmethod
     def from_checkpoint(cls, path: str, sp_cfg: Optional[SuperPointConfig] = None,
                         dtype: torch.dtype = torch.bfloat16, device="cuda") -> "LightGlue":
         """Matcher whose structure is read from the checkpoint, weights loaded."""
-        cfg = MatcherConfig(dtype=dtype, **matcher_arch_from_npz(path))
+        cfg = cls.matcher_cfg_factory(dtype=dtype, **matcher_arch_from_npz(path))
         m = cls(sp_cfg=sp_cfg, matcher_cfg=cfg, device=device)
         m.load_weights(path)
         return m
 
-    def load_weights(self, path: str) -> None:
+    def load_weights(self, path: str, image_hw=None) -> None:
         """Load a checkpoint holding the matcher and, where present, its
-        SuperPoint front end."""
+        SuperPoint front end (``image_hw`` is the JAX package's init shape,
+        which torch modules do not need)."""
         groups = load_npz(path)
         if "superpoint" in groups:
             self.sp.load_state(groups["superpoint"])
@@ -252,10 +280,49 @@ class LightGlue:
         self.net.to(self.device)
 
     @torch.no_grad()
+    def init_random_(self, seed: int = 0) -> "LightGlue":
+        """SuperPoint and the matcher drawn with flax's initialisers from
+        ``torch.Generator().manual_seed(seed)`` (the global RNG is left
+        alone): lecun-normal kernels, zero biases, LayerNorm ones and
+        zeros, the rotary projection from N(0, 1), the dustbin at 1."""
+        gen = torch.Generator().manual_seed(int(seed))
+        for net in (self.sp.net, self.net):
+            net.cpu()
+            flax_init_(net, gen)
+        self.net.posenc.Wr.normal_(0.0, 1.0, generator=gen)
+        if self.cfg.assignment == "sinkhorn":
+            self.net.dustbin.fill_(1.0)
+        self.sp.net.to(self.device)
+        self.net.to(self.device)
+        return self
+
+    @torch.no_grad()
     def match_keypoints(self, kp0: Keypoints, kp1: Keypoints, image_hw) -> Matches:
         scores = self.net(kp0.descriptors, kp0.coords, kp0.mask,
                           kp1.descriptors, kp1.coords, kp1.mask, tuple(image_hw))
         return extract_matches(scores, kp0.mask, kp1.mask, self.cfg.match_threshold)
+
+    @torch.no_grad()
+    def match_batch(self, images0: torch.Tensor, images1: torch.Tensor):
+        """(B, H, W, 1) grayscale pairs -> (kp0, kp1, matches), on the device."""
+        kp0 = self.sp.detect(torch.as_tensor(images0, device=self.device))
+        kp1 = self.sp.detect(torch.as_tensor(images1, device=self.device))
+        hw = (int(images0.shape[1]), int(images0.shape[2]))
+        return kp0, kp1, self.match_keypoints(kp0, kp1, hw)
+
+    @torch.no_grad()
+    def detect_and_match(self, image1, image2):
+        """One pair of uint8 images -> (matched kpts1 (M, 2), kpts2 (M, 2),
+        confidences (M,)), tensors on the device. ``last_detector_counts``
+        holds the detector's totals."""
+        g1 = to_grayscale(torch.as_tensor(image1, device=self.device)[None])
+        g2 = to_grayscale(torch.as_tensor(image2, device=self.device)[None])
+        kp0, kp1, matches = self.match_batch(g1, g2)
+        valid = matches.valid[0]
+        idx = matches.idx0[0][valid].long()
+        self.last_detector_counts = tuple(
+            int(n) for n in torch.stack([kp0.mask[0].sum(), kp1.mask[0].sum()]).tolist())
+        return kp0.coords[0][valid], kp1.coords[0][idx], matches.scores[0][valid]
 
     def make_fused_match_verify(
         self,
@@ -303,3 +370,10 @@ class LightGlue:
             )
 
         return run
+
+
+class SuperGlue(LightGlue):
+    """The Sinkhorn-assignment variant: 20 iterations, match threshold 0.2,
+    the LightGlue skeleton otherwise."""
+
+    matcher_cfg_factory = staticmethod(MatcherConfig.superglue)

@@ -22,7 +22,12 @@ tree onto the port's module names:
 * AnyLoc's ``vlad/centers`` group is the (K, D) vocabulary, kept as is.
 
 :func:`carry_jax_vpr` puts a flax-initialised encoder's parameters (numpy
-leaves) into the port's encoder of the same architecture.
+leaves) into the port's encoder of the same architecture, and
+:func:`carry_jax_matcher` a matcher's (LightGlue, SuperGlue, LoFTR).
+LoFTR's ``loftr:`` tree names its layers as the port's modules do
+(``backbone/c1a``, ``self0_0/q``, ``cross3_1/ffn2``...), so it maps with the
+rules above and no scan split; :func:`to_jax_params` and
+:func:`save_params_npz` write a state dict back in that layout.
 """
 
 from __future__ import annotations
@@ -100,6 +105,30 @@ def default_parallax_matcher_checkpoint() -> Optional[str]:
     return shipped_checkpoint("lightglue_parallax_sp.npz") or default_matcher_checkpoint()
 
 
+def default_loftr_checkpoint() -> Optional[str]:
+    """The shipped homography-trained LoFTR: ``loftr_homog_v3.npz`` (trained
+    at 272x360), else ``loftr_homog_v2.npz`` (256x320), else
+    ``loftr_homog.npz`` (128x160)."""
+    return shipped_checkpoint("loftr_homog_v3.npz", "loftr_homog_v2.npz", "loftr_homog.npz")
+
+
+def default_superglue_checkpoint() -> Optional[str]:
+    """The shipped homography-trained SuperGlue (``superglue_homog.npz``)."""
+    return shipped_checkpoint("superglue_homog.npz")
+
+
+def default_parallax_superglue_checkpoint() -> Optional[str]:
+    """The SuperGlue trained on layered parallax pairs
+    (``superglue_parallax.npz``), else the homography-trained one."""
+    return shipped_checkpoint("superglue_parallax.npz") or default_superglue_checkpoint()
+
+
+def default_parallax_loftr_checkpoint() -> Optional[str]:
+    """The LoFTR trained on layered parallax pairs (``loftr_parallax.npz``),
+    else the homography-trained default."""
+    return shipped_checkpoint("loftr_parallax.npz") or default_loftr_checkpoint()
+
+
 def default_mixvpr_checkpoint() -> Optional[str]:
     return shipped_checkpoint("vpr_mixvpr.npz")
 
@@ -119,6 +148,54 @@ def carry_jax_vpr(vpr, params: Any, centers: Optional[np.ndarray] = None):
     else:
         vpr.load_state(state, centers=centers)
     return vpr
+
+
+def carry_jax_matcher(matcher, params: Any, superpoint: Any = None):
+    """Load a flax parameter tree (numpy leaves) into a port matcher of the
+    same architecture: LightGlue's or SuperGlue's ``matcher`` tree (the
+    scanned ``blocks`` split per layer, SuperGlue's ``dustbin`` kept) with,
+    when given, the ``superpoint`` tree, or LoFTR's ``loftr`` tree. Returns
+    ``matcher``."""
+    if hasattr(matcher, "sp"):
+        if superpoint is not None:
+            matcher.sp.load_state(from_jax_params(superpoint))
+        matcher.net.load_state_dict(from_jax_params(params), strict=True)
+    else:
+        matcher.net.load_state_dict(from_jax_params(params, scan_prefixes=()), strict=True)
+    matcher.net.to(matcher.device)
+    return matcher
+
+
+def to_jax_params(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """A torch state dict with no scanned subtree -> flax tree (numpy
+    leaves): the inverse of :func:`from_jax_params` for Dense, Conv and
+    LayerNorm leaves."""
+    inv = {v: k for k, v in _RENAME.items()}
+    flat: Dict[str, np.ndarray] = {}
+    for key, t in state.items():
+        parts = key.split(".")
+        v = t.detach().cpu().numpy()
+        leaf = parts[-1]
+        if leaf == "weight" and v.ndim == 2:
+            leaf, v = "kernel", v.T
+        elif leaf == "weight" and v.ndim == 4:
+            leaf, v = "kernel", v.transpose(2, 3, 1, 0)
+        else:
+            leaf = inv.get(leaf, leaf)
+        flat["/".join([*parts[:-1], leaf])] = np.ascontiguousarray(v)
+    return unflatten_params(flat)
+
+
+def save_params_npz(path: str, dtype=np.float16, **trees: Any) -> None:
+    """Named flax trees into one npz under ``<name>:<slash/path>`` keys,
+    floats stored as ``dtype`` (the checkpoints' own format)."""
+    flat: Dict[str, np.ndarray] = {}
+    for name, tree in trees.items():
+        for k, v in flatten_params(tree).items():
+            if np.issubdtype(v.dtype, np.floating):
+                v = v.astype(dtype)
+            flat[f"{name}:{k}"] = v
+    np.savez_compressed(path, **flat)
 
 
 def matcher_arch_from_npz(path: str) -> Dict[str, int]:

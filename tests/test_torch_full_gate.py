@@ -196,7 +196,8 @@ def test_verify_pairs_batch_and_floor_skip():
     from mlis_tpu_torch.gating.verification import SemanticGeometricVerifier
 
     rng = np.random.default_rng(2)
-    gray = np.asarray(jax_gray(jnp.asarray(_scene_images(rng, 8))))
+    colour = _scene_images(rng, 8)
+    gray = np.asarray(jax_gray(jnp.asarray(colour)))
     im0, im1 = gray[[0, 1, 2, 3, 0]], gray[[4, 5, 6, 7, 5]]
     idx = [(0, 4), (1, 5), (2, 6), (3, 7), (0, 5)]
     ckpt = "checkpoints/lightglue_homog_sp.npz"
@@ -222,11 +223,19 @@ def test_verify_pairs_batch_and_floor_skip():
         assert a.num_confident_matches == b.num_confident_matches
     assert all(r.is_valid and r.num_matches > 40 for r in got[:4])  # identical scenes
 
+    # the single-pair path on the uint8 images, as the reference takes them,
+    # with the reference's draws for one pair (PRNGKey(0))
+    from mlis_tpu.gating.verification import SemanticGeometricVerifier as JaxSemantic
+
     sem = SemanticGeometricVerifier(matcher=port.matcher)
-    skipped = sem.verify_with_semantics(im0[0], im1[0], 5, 2, K_CAM, 0, 4)
+    skipped = sem.verify_with_semantics(colour[0], colour[4], 5, 2, K_CAM, 0, 4)
     assert not skipped.is_valid and skipped.num_matches == 0 and skipped.relative_pose is None
-    same = sem.verify_with_semantics(im0[0], im1[0], 5, 5, K_CAM, 0, 4,
-                                     uniforms=torch.tensor(draws[0][:1]))
+    same = sem.verify_with_semantics(
+        colour[0], colour[4], 5, 5, K_CAM, 0, 4,
+        uniforms=torch.tensor(np.asarray(jax.random.uniform(jax.random.PRNGKey(0), (HYP, 8)))))
+    want = JaxSemantic(matcher=jlg).verify_with_semantics(colour[0], colour[4], 5, 5, K_CAM, 0, 4)
+    assert (same.num_matches, same.is_valid) == (want.num_matches, want.is_valid)
+    assert abs(same.num_inliers - want.num_inliers) <= 1
     assert (same.num_matches, same.is_valid) == (got[0].num_matches, got[0].is_valid)
     stats = sem.get_statistics()
     assert (stats["verified"], stats["skipped_floor_mismatch"], stats["skip_rate"]) == (1, 1, 0.5)

@@ -221,6 +221,18 @@ def test_port_runs_without_jax_or_mlis_tpu():
         from mlis_tpu_torch.train.pretrain_vpr import load_encoder
         for arch in ("salad", "anyloc"):
             assert load_encoder(arch=arch, device="cpu")(scene.images[:2]).shape[0] == 2
+        from mlis_tpu_torch.eval.quality import build_verifier
+        from mlis_tpu_torch.models.loftr import LoFTR, LoFTRConfig
+        import mlis_tpu_torch.models.orb
+        for fam in ("orb", "loftr", "superglue"):
+            v, w = build_verifier(fam, 64, (64, 96), device="cpu")
+            assert w in ("orb_weight_free", "loftr_homog_v3.npz", "superglue_homog.npz"), w
+        r = build_verifier("orb", 64, (64, 96), device="cpu")[0].verify(
+            scene.images[0], scene.images[4], scene.K)
+        assert r.num_confident_matches == -1
+        dm = LoFTR(LoFTRConfig.tiny_test(), device="cpu").match_batch(
+            torch.rand(2, 66, 96, 1), torch.rand(2, 66, 96, 1))
+        assert dm.kpts0.shape == (2, 64, 2)
         assert not any(m == "jax" or m.startswith(("jax.", "mlis_tpu.")) or m == "mlis_tpu"
                        for m, v in sys.modules.items() if v is not None)
         print("ok")

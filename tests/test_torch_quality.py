@@ -443,9 +443,13 @@ def test_build_verifier_families():
     assert v.matcher.cfg.depth == 9 and v.matcher.sp.cfg.max_keypoints == 32
     v, w = tq.build_verifier("random", 32, HW, device="cpu")
     assert w == "random_init"
-    for fam in ("orb", "superglue", "loftr"):
-        with pytest.raises(ValueError, match="ROADMAP Queue 1"):
-            tq.build_verifier(fam, 32, HW, device="cpu")
+    # the other families build (their rows: tests/test_torch_quality_matchers.py)
+    for fam, label in (("orb", "orb_weight_free"), ("superglue", "random_init"),
+                       ("loftr", "random_init")):
+        v, w = tq.build_verifier(fam, 32, HW, weights_path="no/such.npz", device="cpu")
+        assert w == label and w == jq.build_verifier(fam, 32, HW, weights_path="no/such.npz")[1]
+    with pytest.raises(ValueError, match="unknown matcher family"):
+        tq.build_verifier("sift", 32, HW, device="cpu")
     assert tq.SUPERGLUE_CONFIDENT_CUT == jq.SUPERGLUE_CONFIDENT_CUT == 16
     # the floor gate the harness relies on, both packages on the same pairs
     fl = np.asarray([5, 5, 2, 2])
