@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (mlis_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py                  # the check, on CUDA device 0
-    python3 chip_smoke.py --device cpu --keyframes 16
+    python3 chip_smoke.py --device cpu --keyframes 16 --scans 600
                                            # rehearsal of every phase on the CPU
 
 Phases, one line each as they end:
@@ -32,8 +32,10 @@ Phases, one line each as they end:
 3. the main path as bench.py's default mode runs it: the sweep through
    ``gating.integration.analyze``, then ``FullGatePipeline.process`` on
    128 mono8 keyframes at 270x360 with the shipped MixVPR and LightGlue
-   checkpoints (one warm-up, three timed runs, one more under
-   torch.profiler for the device time per stage and kernel);
+   checkpoints (one warm-up, three timed runs with bench.py's keywords
+   ``survivor_budget`` = the previous run's survivors and
+   ``monolithic=True``, one more under torch.profiler for the device time
+   per stage and kernel);
 4. the same gate at 16 keyframes on the card and on the CPU in float32
    with TF32 off and the same RANSAC draws: identical candidate and
    survivor pairs, decisions equal except within 1 inlier or 0.01 of
@@ -89,7 +91,26 @@ Phases, one line each as they end:
    bench.py random-initialises without it), the keypoints' kv_len
    distribution, 18 flash launches per verify batch, the Sinkhorn head
    (20 log-space iterations over 256 x 2049 x 2049 float32) under its own
-   profiler range.
+   profiler range;
+10. the floor-labelling path at one NUFR-M3F traversal's size, every
+   input drawn on the device from torch.Generator(0): 240,000 IMU samples
+   (1,200 s at 200 Hz, make_demo_data's noise, four planted rides 5 -> 4
+   -> 5 -> 4 -> 5) through ``IMUFloorDetector`` onto 19,163 pose times
+   (exactly the four rides, the labels they imply, card against CPU);
+   3,000 OS-128 scans (128 rings x 1024 columns, 4.7 GB on the device)
+   through ``LiDARFloorTracker.process_scans`` with ring ids (every scan
+   on its simulated floor outside the rides, the four transitions, 8 scans
+   card against CPU on the same draws); their fusion and agreement;
+   ``SemanticGatingPipeline.detect_floors``, the exact sweep with those
+   labels through ``integration.analyze`` (one K1 launch, counts equal to
+   the float64 host sweep), ``gate_candidates`` on 4,096 candidate pairs
+   and the report; ``ORBSlam3SemanticIntegration.run_full_analysis`` and
+   ``run_comparison`` over four TUM files (19,163 poses); and the
+   ``StreamingGate`` at capacity, width and length 4,096 in micro-batches
+   of 16 with the ``stream`` CLI's revisits and traps (each revisit
+   accepted, each trap rejected, 512 frames card against CPU), then
+   ``measure_compute_rate``. Each part prints its seconds, rate, peak
+   memory and launches; a launch other than K1's in the sweeps fails it.
 Phases 5, 6, 8 and 9 run like phase 3 (warm-up, three timed runs, one
 profiled run), with every launch counter set to 0 before each run.
 
@@ -105,6 +126,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -716,11 +739,14 @@ def phase_main_path(dev, args, expected_sweep) -> dict:
     runs = []
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    budget = None  # bench.py's reps: the survivor count of the previous rep as the budget
     for rep in range(TIMED_REPS + 1):
         pipe.spr.vpr.descriptors = []
         t0 = time.perf_counter()
-        res = pipe.process(images, timestamps, floors, K, encode_batch_size=128, generator=gen)
+        res = pipe.process(images, timestamps, floors, K, encode_batch_size=128,
+                           survivor_budget=budget, monolithic=True, generator=gen)
         sync(dev)
+        budget = res.verified or None
         wall = time.perf_counter() - t0
         kind = "warmup" if rep == 0 else f"timed{rep}"
         log(f"3 gate {kind}", t0, candidates=res.total_pairs,
@@ -1533,10 +1559,385 @@ def phase_quality_card_vs_cpu(dev) -> None:
         candidates=total, verified=total - rejected, **fields)
 
 
+# -- phase 10: the floor-labelling path ----------------------------------------
+
+IMU_RATE, IMU_SAMPLES = 200.0, 240_000  # 1,200 s at 200 Hz (mlis_tpu/core/dataset.py:67)
+LIDAR_RATE, LIDAR_SCANS = 10.0, 3_000  # 5 minutes at 10 Hz (dataset.py:68)
+OS128_RINGS, OS128_COLUMNS = 128, 1024  # LeGO-LOAM's N_SCAN x Horizon_SCAN for an OS-128
+OS128_FOV_DEG = 45.0  # vertical, centred on the horizon
+GROUND_RINGS = 30
+FLOOR_HEIGHT_M = 3.5  # dataset.py:71
+START_FLOOR = 5
+# four elevator rides (start as a share of the LiDAR stream, seconds, direction):
+# 5 -> 4 -> 5 -> 4 -> 5, with make_demo_data's magnitudes (down -0.8, up +0.7 m/s^2)
+RIDES = ((0.20, 4.0, -1), (0.43, 5.0, +1), (0.66, 6.0, -1), (0.89, 4.5, +1))
+RIDE_ACCEL = {-1: -0.8, +1: 0.7}
+SENSOR_HEIGHT_M = 1.5  # above the floor it stands on
+EDGE_SLACK_S = 0.5  # a detected ride edge within this of the planted one
+LIDAR_SETTLE_S = 1.0  # smoothing window (10 scans) after a ride's end
+LIDAR_CPU_SCANS = 8
+LIDAR_COUNT_SHARE = 1e-3  # card vs CPU inlier counts, share of a scan's ground points
+LIDAR_HEIGHT_ATOL = 1e-4
+GATE_PAIRS = 4096
+SEQUENCE_POSES = (("5th_floor", 8035), ("1st_floor", 2793), ("4th_floor", 2836),
+                  ("2nd_floor", 5499))  # 19,163 poses in the ratio of the published lengths
+STREAM_FRAMES = STREAM_CAPACITY = STREAM_DIM = 4096  # measure_compute_rate's defaults
+STREAM_BATCH = 16
+STREAM_CPU_FRAMES = 512
+
+
+def ride_windows(scans: int):
+    """(start s, end s, direction) of each planted ride."""
+    span = scans / LIDAR_RATE
+    return [(share * span, share * span + dur, d) for share, dur, d in RIDES]
+
+
+def simulated_floor(t: np.ndarray, rides) -> np.ndarray:
+    """Floor at time t (float64): rides done by then, linear inside a ride."""
+    f = np.full(t.shape, float(START_FLOOR))
+    for a, b, d in rides:
+        f += d * np.clip((t - a) / (b - a), 0.0, 1.0)
+    return f
+
+
+def imu_stream(dev, gen, rides):
+    """make_demo_data's noise model at IMU_SAMPLES, with the planted rides."""
+    t = np.arange(IMU_SAMPLES) / IMU_RATE
+    tt = torch.as_tensor(t, device=dev)
+    ax, ay = (0.1 * torch.randn(IMU_SAMPLES, generator=gen, device=dev) for _ in range(2))
+    az = 9.81 + 0.1 * torch.randn(IMU_SAMPLES, generator=gen, device=dev)
+    for a, b, d in rides:
+        az[(tt >= a) & (tt <= b)] += RIDE_ACCEL[d]
+    gyro = 0.01 * torch.randn(IMU_SAMPLES, 3, generator=gen, device=dev)
+    return t, ax, ay, az, gyro
+
+
+def lidar_bag(dev, gen, scans: int, rides):
+    """(points (S, P, 3) float32, ring ids (P,) int16, scan times) of an
+    OS-128 (45 deg vertical field, rings in rows of 1024 columns): rings
+    below GROUND_RINGS see the ground plane (5% of their returns furniture
+    0.3-1.2 m above it, 2 cm noise), the others walls 8 m away. The ground
+    lies SENSOR_HEIGHT_M below the sensor on the lower floor of the
+    traversal and FLOOR_HEIGHT_M further on the upper one, moving linearly
+    during a ride (the frame the tracker's heights are measured in)."""
+    P = OS128_RINGS * OS128_COLUMNS
+    times = np.arange(scans) / LIDAR_RATE
+    level = simulated_floor(times, rides) - (START_FLOOR - 1)
+    heights = torch.as_tensor(SENSOR_HEIGHT_M + FLOOR_HEIGHT_M * level, device=dev,
+                              dtype=torch.float32)
+    ring = torch.arange(OS128_RINGS, device=dev).repeat_interleave(OS128_COLUMNS)
+    elev = torch.deg2rad(-OS128_FOV_DEG / 2 + OS128_FOV_DEG * ring / (OS128_RINGS - 1))
+    az = 2 * torch.pi * torch.arange(OS128_COLUMNS, device=dev).repeat(OS128_RINGS) / OS128_COLUMNS
+    ground = ring < GROUND_RINGS
+    cos_a, sin_a, tan_e = az.cos(), az.sin(), elev.tan()
+    points = torch.empty((scans, P, 3), dtype=torch.float32, device=dev)
+    for s in range(0, scans, 100):
+        h = heights[s : s + 100, None]
+        B = h.shape[0]
+        rho = torch.where(ground, h / (-tan_e).clamp(min=1e-3), torch.full_like(h, 8.0))
+        z = torch.where(ground, -h, 8.0 * tan_e) + 0.02 * torch.randn(B, P, generator=gen, device=dev)
+        clutter = ground & (torch.rand(B, P, generator=gen, device=dev) < 0.05)
+        z = torch.where(clutter, z + 0.3 + 0.9 * torch.rand(B, P, generator=gen, device=dev), z)
+        points[s : s + B, :, 0] = rho * cos_a
+        points[s : s + B, :, 1] = rho * sin_a
+        points[s : s + B, :, 2] = z
+    return points, ring.to(torch.int16), times
+
+
+def loop_positions(gen, dev, n: int, lap_poses: int = 300) -> np.ndarray:
+    """An 8 x 5 m loop walked once every lap_poses poses, with 5 cm noise:
+    every floor revisits the same xy area, as per-floor visual SLAM runs do."""
+    s = 2 * np.pi * np.arange(n) / lap_poses
+    pos = np.column_stack([8 * np.cos(s), 5 * np.sin(s), 0.1 * np.sin(3 * s)])
+    return pos + 0.05 * torch.randn(n, 3, generator=gen, device=dev, dtype=torch.float64).cpu().numpy()
+
+
+def part_begin(dev) -> tuple:
+    """(start time, bytes allocated at the start) of a part of phase 10."""
+    reset_launch_counts()
+    base = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    sync(dev)
+    return time.perf_counter(), base
+
+
+def part_end(dev, phase: str, start: tuple, expected: dict, rate=None, **fields) -> dict:
+    """Log a part: seconds to a synchronize, its rate (``rate`` = (work
+    done, name)), peak memory (and above what the part started with) and
+    launches; on the card any launch count other than ``expected`` fails
+    the phase."""
+    sync(dev)
+    t0, base = start
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    if rate:
+        fields[rate[1]] = f"{rate[0] / seconds:.1f}"
+    log(phase, t0, **fields, peak_mem_bytes=peak, peak_above_start_bytes=peak - base,
+        launches=json.dumps(counts, separators=(",", ":")))
+    want = {"tri_count": 0, "flash_attention": 0, "dense_attention": 0, **expected}
+    if dev.type == "cuda" and counts != want:
+        raise AssertionError(f"{phase}: kernel launches {counts}, expected {want}")
+    return {"seconds": seconds, **counts}
+
+
+def check_events(events, rides, what: str) -> None:
+    if [e.floor_change for e in events] != [d for _, _, d in rides]:
+        raise AssertionError(f"{what}: events {[(e.start_time, e.direction) for e in events]}, "
+                             f"planted {rides}")
+    for e, (a, b, _) in zip(events, rides):
+        if abs(e.start_time - a) > EDGE_SLACK_S or abs(e.end_time - b) > EDGE_SLACK_S:
+            raise AssertionError(f"{what}: ride {(a, b)} detected at {(e.start_time, e.end_time)}")
+
+
+def compare_labels(a: np.ndarray, b: np.ndarray, pose_t, bounds, slack: float, what: str) -> int:
+    """Labels equal except for poses within ``slack`` of a boundary;
+    returns how many poses were excused."""
+    near = np.abs(pose_t[:, None] - np.asarray(bounds)[None, :]).min(1) <= slack
+    bad = np.nonzero((a != b) & ~near)[0]
+    if len(bad):
+        raise AssertionError(f"{what}: {len(bad)} labels differ, first at pose {bad[0]}: "
+                             f"{a[bad[0]]} vs {b[bad[0]]}")
+    return int(near.sum())
+
+
+def phase_floor_labelling(dev, args) -> dict:
+    """Phase 10: IMU -> elevator events -> labels, LiDAR -> ground planes ->
+    floors, their fusion, the semantic-gating pipeline with the exact
+    sweep (one K1 launch per analyze), SemanticIntegration over TUM files,
+    and the StreamingGate; every input drawn on the device from
+    torch.Generator(0)."""
+    import tempfile
+
+    from mlis_tpu_torch.core.trajectory import Trajectory, save_tum
+    from mlis_tpu_torch.gating import integration
+    from mlis_tpu_torch.gating.floor_detector import IMUFloorDetector
+    from mlis_tpu_torch.gating.fusion import MultiModalFloorDetector
+    from mlis_tpu_torch.gating.lidar_floor_tracker import (
+        LiDARFloorTracker,
+        fit_plane_ransac_batch,
+    )
+    from mlis_tpu_torch.gating.pipeline import SemanticGatingPipeline
+    from mlis_tpu_torch.gating.streaming import StreamingGate, measure_compute_rate
+    from mlis_tpu_torch.ops.pairwise import candidate_counts_host, candidate_pairs_host
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rides = ride_windows(args.scans)
+    bounds = [x for a, b, _ in rides for x in (a, b)]
+    pose_t = np.linspace(0.0, (IMU_SAMPLES - 1) / IMU_RATE, SWEEP_POSES)
+    want_labels = np.where(
+        np.any([(pose_t >= a) & (pose_t <= b) for a, b, _ in rides], axis=0), 0,
+        np.round(simulated_floor(pose_t, rides))).astype(np.int32)
+    k1 = 0
+
+    # -- IMU: events and per-pose labels
+    t, ax, ay, az, gyro = imu_stream(dev, gen, rides)
+    det = IMUFloorDetector(device=dev)
+    det.detect_elevator_events(t[:4000], ax[:4000], ay[:4000], az[:4000])  # warm-up
+    part = part_begin(dev)
+    events = det.detect_elevator_events(t, ax, ay, az)
+    labels = det.assign_floor_labels(pose_t, start_floor=START_FLOOR)
+    imu = part_end(dev, "10 imu", part, {}, (IMU_SAMPLES, "samples_per_s"), samples=IMU_SAMPLES,
+                   poses=SWEEP_POSES, events=len(events),
+                   directions=",".join(e.direction for e in events))
+    check_events(events, rides, "IMU")
+    excused = compare_labels(labels, want_labels, pose_t, bounds, EDGE_SLACK_S, "IMU vs planted")
+    cpu_det = IMUFloorDetector(device=cpu)
+    cpu_events = cpu_det.detect_elevator_events(t, ax.cpu(), ay.cpu(), az.cpu())
+    if [e.direction for e in cpu_events] != [e.direction for e in events] or any(
+            abs(a.start_idx - b.start_idx) > 1 or abs(a.end_idx - b.end_idx) > 1
+            for a, b in zip(events, cpu_events)):
+        raise AssertionError(f"IMU card vs CPU: {events} vs {cpu_events}")
+    cpu_labels = cpu_det.assign_floor_labels(pose_t, start_floor=START_FLOOR)
+    edges = [x for e in events + cpu_events for x in (e.start_time, e.end_time)]
+    compare_labels(labels, cpu_labels, pose_t, edges, 1.0 / IMU_RATE, "IMU card vs CPU")
+    print(f"  imu events {[(round(e.start_time, 3), round(e.end_time, 3), e.direction) for e in events]}"
+          f" labels_vs_planted_excused={excused} cpu_index_shift="
+          f"{max(abs(a.start_idx - b.start_idx) + abs(a.end_idx - b.end_idx) for a, b in zip(events, cpu_events))}",
+          flush=True)
+
+    # -- LiDAR: ground planes and floors over the bag
+    points, ring, scan_t = lidar_bag(dev, gen, args.scans, rides)
+    rings = ring.expand(points.shape[0], -1)
+    LiDARFloorTracker(device=dev).process_scans(points[:16], scan_t[:16], rings[:16])  # warm-up
+    tracker = LiDARFloorTracker(device=dev)
+    part = part_begin(dev)
+    ests = tracker.process_scans(points, scan_t, rings)
+    lidar = part_end(dev, "10 lidar", part, {}, (args.scans, "scans_per_s"), scans=args.scans,
+                     points_per_scan=points.shape[1], hypotheses=tracker.ransac_iterations,
+                     threshold_m=tracker.ransac_threshold, points_bytes=points.numel() * 4)
+    floors = np.array([e.floor_number for e in ests])
+    sim = np.round(simulated_floor(scan_t, rides)).astype(int) - START_FLOOR
+    settling = np.any([(scan_t >= a) & (scan_t <= b + LIDAR_SETTLE_S) for a, b, _ in rides], axis=0)
+    wrong = np.nonzero((floors != sim) & ~settling)[0]
+    if len(wrong) or len(tracker.floor_history) != args.scans:
+        raise AssertionError(f"LiDAR floors: {len(wrong)} scans off the simulated floor "
+                             f"(first {wrong[:5]}), {len(tracker.floor_history)} recorded")
+    transitions = tracker.detect_floor_transitions()
+    if [(a, b) for _, a, b in transitions] != [(0, -1), (-1, 0), (0, -1), (-1, 0)] or any(
+            not (a <= tt <= b + LIDAR_SETTLE_S) for (tt, _, _), (a, b, _) in zip(transitions, rides)):
+        raise AssertionError(f"LiDAR transitions {transitions}, rides {rides}")
+    # 8 scans on the card and on the CPU with the same draws
+    pick = torch.as_tensor(np.linspace(0, args.scans - 1, LIDAR_CPU_SCANS).astype(np.int64),
+                           device=dev)
+    sub, rsub = points[pick], rings[pick]
+    gsub = rsub < GROUND_RINGS
+    u = torch.rand((LIDAR_CPU_SCANS, tracker.ransac_iterations, 3), generator=gen, device=dev)
+    fit = {d: fit_plane_ransac_batch(sub.to(d), gsub.to(d), uniforms=u.to(d)) for d in (dev, cpu)}
+    n_ground = gsub.sum(1).cpu().double()
+    count_diff = ((fit[dev][1].cpu().double() - fit[cpu][1].double()) * n_ground).abs()
+    height = {d: torch.where(fit[d][0][:, 2] < 0, -fit[d][0][:, 3], fit[d][0][:, 3]).cpu()
+              for d in fit}
+    height_diff = float((height[dev] - height[cpu]).abs().max())
+    floors8 = {d: [e.floor_number for e in LiDARFloorTracker(device=d).process_scans(
+        sub.to(d), scan_t[pick.cpu().numpy()], rsub.to(d), uniforms=u.to(d))]
+        for d in (dev, cpu)}
+    if (count_diff > LIDAR_COUNT_SHARE * n_ground).any() or height_diff > LIDAR_HEIGHT_ATOL \
+            or floors8[dev] != floors8[cpu]:
+        raise AssertionError(f"LiDAR card vs CPU: counts {count_diff.tolist()}, heights "
+                             f"{height_diff}, floors {floors8}")
+    print(f"  lidar transitions {[(round(tt, 1), a, b) for tt, a, b in transitions]} "
+          f"card_vs_cpu inlier_count_diff_max={int(count_diff.max())} "
+          f"height_diff_max_m={height_diff:.3g} floors_equal=True", flush=True)
+    del points, rings, sub
+
+    # -- fusion of the two
+    part = part_begin(dev)
+    fusion = MultiModalFloorDetector(floor_height=FLOOR_HEIGHT_M, device=dev)
+    fusion.imu_detector, fusion.lidar_tracker = det, tracker
+    fused = fusion.fuse_estimates(pose_t, start_floor=START_FLOOR)
+    agreement = fusion.agreement(pose_t, start_floor=START_FLOOR)
+    fuse = part_end(dev, "10 fusion", part, {}, (len(pose_t), "poses_per_s"), poses=len(pose_t),
+                    agreement=agreement["agreement"])
+    if not np.array_equal(fused, labels) or not agreement["lidar_available"]:
+        raise AssertionError("fusion: the IMU labels must win")
+
+    # -- the semantic-gating pipeline: IMU labels -> exact sweep -> gate -> report
+    positions = loop_positions(gen, dev, SWEEP_POSES)
+    trajectory = np.column_stack([pose_t, positions, np.tile([0.0, 0, 0, 1], (SWEEP_POSES, 1))])
+    imu_table = torch.stack([torch.as_tensor(t, device=dev), ax.double(), ay.double(), az.double(),
+                             *gyro.double().unbind(1)], 1).cpu().numpy()
+    out_dir = tempfile.mkdtemp(prefix="mlis_phase10_")
+    part = part_begin(dev)
+    pipe = SemanticGatingPipeline(output_dir=out_dir, device=dev)
+    pipe.trajectory, pipe.imu_data = trajectory, imu_table
+    p_events, p_labels = pipe.detect_floors(start_floor=START_FLOOR)
+    analysis, _ = integration.analyze(positions, p_labels, RADIUS, MIN_GAP, device=dev)
+    pipe.create_loop_closure_gate()
+    qi, mi, dist = candidate_pairs_host(positions[:3000], p_labels[:3000], RADIUS, MIN_GAP)
+    cands = list(zip(qi[:GATE_PAIRS].tolist(), mi[:GATE_PAIRS].tolist(),
+                     (1.0 / (1.0 + dist[:GATE_PAIRS])).tolist()))
+    valid, rejected = pipe.gate_candidates(cands)
+    report = pipe.generate_report()
+    gating = part_end(dev, "10 gating", part, {"tri_count": 1}, poses=SWEEP_POSES,
+                      total=analysis.total_candidates, same_floor=analysis.same_floor_candidates,
+                      cross_floor=analysis.cross_floor_candidates,
+                      sweep_s=f"{analysis.elapsed_s:.4f}", gated=len(cands),
+                      accepted=len(valid), rejected=len(rejected))
+    k1 += gating["tri_count"]
+    host = candidate_counts_host(positions, p_labels, RADIUS, MIN_GAP)
+    same_host = int(sum(p_labels[q] == p_labels[m] for q, m, _ in cands))
+    stats = pipe.loop_gate.get_stats()
+    if not np.array_equal(p_labels, labels) or len(p_events) != len(RIDES):
+        raise AssertionError("pipeline: detect_floors disagrees with the IMU part")
+    if (analysis.total_candidates, analysis.same_floor_candidates,
+            analysis.cross_floor_candidates) != host or host[2] == 0:
+        raise AssertionError(f"pipeline sweep {analysis} vs float64 host {host}")
+    if (stats["total_candidates"], stats["accepted"]) != (len(cands), same_host) or \
+            len(cands) != GATE_PAIRS or len(rejected) == 0:
+        raise AssertionError(f"pipeline gate {stats} vs host {same_host} of {len(cands)}")
+    if "Elevator events: 4" not in report or not os.path.exists(
+            os.path.join(out_dir, "semantic_gating_report.txt")):
+        raise AssertionError("pipeline report missing")
+
+    # -- SemanticIntegration over four floor sequences written as TUM files
+    root = os.path.join(out_dir, "trajectories")
+    os.makedirs(os.path.join(root, "orb_slam3"))
+    t_start = 1.7e9
+    for name, n in SEQUENCE_POSES:
+        save_tum(Trajectory(t_start + np.arange(n) / 20.0, loop_positions(gen, dev, n),
+                            np.tile([0.0, 0, 0, 1], (n, 1))),
+                 os.path.join(root, "orb_slam3", f"{name}.txt"))
+        t_start += n / 20.0 + 60.0
+    part = part_begin(dev)
+    integ = integration.ORBSlam3SemanticIntegration(root, output_dir=out_dir, device=dev)
+    text = integ.run_full_analysis()
+    results = integration.run_comparison(root, out_dir, algorithms=["orb_slam3"], device=dev)
+    a = integ.last_analysis
+    integ_part = part_end(dev, "10 integration", part, {"tri_count": 2}, poses=len(integ.combined),
+                          total=a.total_candidates, same_floor=a.same_floor_candidates,
+                          cross_floor=a.cross_floor_candidates,
+                          cross_rate=f"{a.cross_floor_rate:.4f}", sweep_s=f"{a.elapsed_s:.4f}")
+    k1 += integ_part["tri_count"]
+    host = candidate_counts_host(integ.combined[:, 1:4], integ.floor_labels, RADIUS, MIN_GAP)
+    r = results["orb_slam3"]
+    if len(integ.combined) != SWEEP_POSES or \
+            (a.total_candidates, a.same_floor_candidates, a.cross_floor_candidates) != host or \
+            (r.total_candidates, r.same_floor_candidates, r.cross_floor_candidates) != host:
+        raise AssertionError(f"integration counts {a} / {r} vs float64 host {host}")
+    for f in ("orb_slam3_semantic_analysis.txt", "semantic_gating_comparison.txt"):
+        if not os.path.exists(os.path.join(out_dir, f)):
+            raise AssertionError(f"integration: {f} not written")
+    if f"Total candidates detected: {host[0]}" not in text:
+        raise AssertionError("integration report lacks the counts")
+
+    # -- StreamingGate: the stream CLI's revisits and traps at D 4096
+    n, D = STREAM_FRAMES, STREAM_DIM
+    desc = torch.randn(n, D, generator=gen, device=dev)
+    s_floors = torch.randint(1, 6, (n,), generator=gen, device=dev).to(torch.int32).cpu().numpy()
+    qs = np.arange(24, n, 8)
+    qt = torch.as_tensor(qs, device=dev)
+    desc[qt] = desc[qt - 20] + 0.01 * torch.randn(len(qs), D, generator=gen, device=dev)
+    traps = [(int(q), int(q - 20)) for q in qs if q % 16 == 0]
+    revisits = [(int(q), int(q - 20)) for q in qs if q % 16]
+    for q, m in traps:
+        s_floors[q] = s_floors[m] % 5 + 1 if s_floors[m] != 5 else 2
+    for q, m in revisits:
+        s_floors[q] = s_floors[m]
+    s_times = np.arange(n, dtype=np.float32) * 2.0
+    kw = dict(capacity=STREAM_CAPACITY, top_k=5, similarity_threshold=0.9, min_time_gap=10.0)
+    warm = StreamingGate(device=dev, **kw)
+    warm.add_keyframes(desc[:STREAM_BATCH], s_times[:STREAM_BATCH], s_floors[:STREAM_BATCH])
+    part = part_begin(dev)
+    sg = StreamingGate(device=dev, **kw)
+    outs = [sg.add_keyframes(desc[s : s + STREAM_BATCH], s_times[s : s + STREAM_BATCH],
+                             s_floors[s : s + STREAM_BATCH]) for s in range(0, n, STREAM_BATCH)]
+    part_end(dev, "10 streaming", part, {}, (n, "keyframes_per_s"), frames=n, dim=D,
+             capacity=STREAM_CAPACITY, micro_batch=STREAM_BATCH,
+             stats=json.dumps(sg.stats, separators=(",", ":")))
+    pairs = {p[:2] for o in outs for p in o.pairs()}
+    if pairs != set(revisits) or sg.stats["rejected_cross_floor"] < len(traps):
+        raise AssertionError(f"streaming: {len(pairs)} pairs, {len(set(revisits) - pairs)} "
+                             f"revisits missed, {len(pairs & set(traps))} traps accepted")
+    cpu_sg = StreamingGate(device=cpu, **kw)
+    desc_cpu = desc[:STREAM_CPU_FRAMES].cpu()
+    for i, s in enumerate(range(0, STREAM_CPU_FRAMES, STREAM_BATCH)):
+        o = cpu_sg.add_keyframes(desc_cpu[s : s + STREAM_BATCH], s_times[s : s + STREAM_BATCH],
+                                 s_floors[s : s + STREAM_BATCH])
+        if not np.array_equal(o.match_ids, outs[i].match_ids) or \
+                o.cross_floor_rejected != outs[i].cross_floor_rejected:
+            raise AssertionError(f"streaming card vs CPU: batch {i} differs")
+    part = part_begin(dev)
+    rate = measure_compute_rate(device=dev)
+    part_end(dev, "10 streaming compute-only", part, {}, frames=STREAM_FRAMES,
+             keyframes_per_s=f"{rate['keyframes_per_s']:.1f}",
+             ms_per_keyframe=f"{rate['ms_per_keyframe']:.4f}", best_of=3)
+    shutil.rmtree(out_dir)
+    log("10 floor labelling", time.perf_counter(), K1_launches=k1, revisits=len(revisits),
+        traps=len(traps), imu_s=f"{imu['seconds']:.4f}", lidar_s=f"{lidar['seconds']:.4f}",
+        fusion_s=f"{fuse['seconds']:.4f}", stream_cpu_frames_equal=STREAM_CPU_FRAMES)
+    return {"launches": k1}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--keyframes", type=int, default=128)
+    ap.add_argument("--scans", type=int, default=LIDAR_SCANS,
+                    help="LiDAR scans of phase 10 (at least 600, for the rides to fit)")
     args = ap.parse_args()
 
     def _timeout(signum, frame):
@@ -1558,6 +1959,7 @@ def main() -> int:
         phase_quality_card_vs_cpu(dev)
         path_c = phase_path_c(dev, args)
         path_d = phase_path_d(dev, args)
+        floor_path = phase_floor_labelling(dev, args)
     signal.alarm(0)
     print(f"[total] {time.perf_counter() - t_all:.3f}s", flush=True)
     if dev.type != "cuda":
@@ -1568,7 +1970,9 @@ def main() -> int:
         "route": "cuda",
         "source": "mlis_tpu_torch/csrc/pairwise.cu",
         "replaces": "mlis_tpu/ops/pairwise.py:138",
-        "launches": main_path["launches"],
+        # one run of each path that reaches it: phase 3's sweep, phase 10's three
+        "launches": main_path["launches"] + floor_path["launches"],
+        "launches_by_path": {"3": main_path["launches"], "10": floor_path["launches"]},
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],

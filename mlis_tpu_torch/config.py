@@ -1,6 +1,7 @@
-"""Pipeline configuration, as far as ``FullGatePipeline.from_config`` reads it.
+"""Pipeline configuration: the fields ``FullGatePipeline.from_config`` reads,
+and the floor detector's, LiDAR tracker's and gate's settings.
 
-The fields it reads, with the names and defaults of ``mlis_tpu/config.py``,
+The fields, with the names and defaults of ``mlis_tpu/config.py``,
 so that one configuration dict means the same thing to both packages;
 ``from_dict`` ignores the fields this package does not read.
 """
@@ -14,12 +15,40 @@ from typing import Any, Dict
 
 
 @dataclass
+class FloorDetectorConfig:
+    """IMU elevator detection thresholds (gating/floor_detector.py)."""
+
+    z_accel_threshold: float = 0.5  # m/s^2 deviation from gravity
+    min_duration: float = 2.0  # seconds
+    window_size: int = 50  # smoothing window, samples
+    horizontal_var_threshold: float = 1.0
+    max_events: int = 32  # padded length of the event table
+
+
+@dataclass
+class LidarTrackerConfig:
+    """LiDAR ground-plane floor tracking (gating/lidar_floor_tracker.py)."""
+
+    ransac_iterations: int = 128
+    inlier_threshold: float = 0.1  # meters
+    ground_ring_max: int = 30  # Ouster OS-128 lower rings
+    floor_height: float = 3.5  # meters per floor (ISEC)
+    smoothing_window: int = 10
+    max_points: int = 8192  # in mlis_tpu's config; neither package reads it
+
+
+@dataclass
 class GateConfig:
     strict_mode: bool = True  # strict: reject any floor diff; loose: diff > 1
+    floor_height: float = 3.0  # for contextual z-priors
+    sigma_z: float = 0.5
+    sigma_dz: float = 0.3
 
 
 @dataclass
 class GatingConfig:
+    floor: FloorDetectorConfig = field(default_factory=FloorDetectorConfig)
+    lidar: LidarTrackerConfig = field(default_factory=LidarTrackerConfig)
     gate: GateConfig = field(default_factory=GateConfig)
 
 

@@ -208,10 +208,20 @@ class FullGatePipeline:
         K: np.ndarray,
         encode_batch_size: int = 64,
         verify: bool = True,
+        upload_chunk: int = 32,
+        survivor_budget: Optional[int] = None,
+        monolithic: bool = False,
         ransac_uniforms: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> FullGateResult:
-        """ransac_uniforms: optional (n_survivors, num_hypotheses, 8) draws
+        """upload_chunk, survivor_budget, monolithic: accepted in the JAX
+        package's positions so that its callers (bench.py's reps, the
+        ``fullgate`` CLI) run unchanged, and they change nothing. There
+        they select budgeted, fused or one-dispatch variants whose result
+        never depends on the budget (an overflow reruns the exact path);
+        this method always runs the exact two-phase path.
+
+        ransac_uniforms: optional (n_survivors, num_hypotheses, 8) draws
         for RANSAC, one block per survivor in compaction order; without
         them the draws come from ``generator`` on the device."""
         n = len(images)

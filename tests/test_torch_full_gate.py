@@ -128,6 +128,36 @@ def test_full_gate_pair_for_pair(mono):
     assert set(got.summary()["stage_seconds"]) == {"vpr", "retrieval", "verification"}
 
 
+@pytest.mark.parametrize("budget", ["above", "below"])
+def test_bench_call_shape_matches_the_plain_call(budget):
+    """bench.py's reps call process(..., encode_batch_size=128,
+    survivor_budget=b, monolithic=True); the keywords change nothing: the
+    pairs and decisions equal those of the call without them, with b above
+    and below the survivor count."""
+    rng = np.random.default_rng(0)
+    n = 16
+    images = _scene_images(rng, n)[..., 0]  # mono8, as bench.py's keyframes
+    times = np.arange(n) * 30.0
+    floors = np.asarray([5] * 8 + [2] * 8)
+    jpipe = _jax_pipeline()
+    pipe = _port_pipeline(jpipe.verifier.matcher)
+    plain = pipe.process(images, times, floors, K_CAM, encode_batch_size=128,
+                         generator=torch.Generator().manual_seed(0))
+    assert plain.verified > 1
+    b = plain.verified + 5 if budget == "above" else plain.verified // 2
+    pipe.spr.vpr.descriptors = []  # the database accumulates across calls
+    got = pipe.process(images, times, floors, K_CAM, encode_batch_size=128,
+                       survivor_budget=b, monolithic=True, upload_chunk=8,
+                       generator=torch.Generator().manual_seed(0))
+    assert (got.total_pairs, got.cross_floor_rejected, got.verified) == (
+        plain.total_pairs, plain.cross_floor_rejected, plain.verified)
+    assert [(r.query_idx, r.match_idx, r.is_valid, r.num_matches, r.num_inliers)
+            for r in got.results] == [
+        (r.query_idx, r.match_idx, r.is_valid, r.num_matches, r.num_inliers)
+        for r in plain.results]
+    assert got.geometrically_valid == plain.geometrically_valid
+
+
 def test_full_gate_no_verify_and_empty():
     rng = np.random.default_rng(1)
     images = _scene_images(rng, 12)

@@ -233,6 +233,21 @@ def test_port_runs_without_jax_or_mlis_tpu():
         dm = LoFTR(LoFTRConfig.tiny_test(), device="cpu").match_batch(
             torch.rand(2, 66, 96, 1), torch.rand(2, 66, 96, 1))
         assert dm.kpts0.shape == (2, 64, 2)
+        import mlis_tpu_torch.core.trajectory, mlis_tpu_torch.core.dataset
+        import mlis_tpu_torch.eval.association, mlis_tpu_torch.ops.filters
+        import mlis_tpu_torch.gating.lidar_floor_tracker, mlis_tpu_torch.gating.fusion
+        import mlis_tpu_torch.gating.pipeline, mlis_tpu_torch.gating.gate
+        from mlis_tpu_torch.gating.floor_detector import IMUFloorDetector
+        from mlis_tpu_torch.gating.integration import SemanticIntegration, run_comparison
+        from mlis_tpu_torch.gating.streaming import StreamingGate
+        traj, imu = mlis_tpu_torch.gating.pipeline.make_demo_data()
+        det = IMUFloorDetector(device="cpu")
+        assert len(det.detect_elevator_events(*imu[:, :4].T)) == 2
+        assert set(det.assign_floor_labels(traj[:, 0])) == {0, 4, 5}
+        sg = StreamingGate(capacity=32, top_k=2, device="cpu")
+        out = sg.add_keyframes(rng.normal(size=(16, 8)).astype(np.float32),
+                               np.arange(16) * 20.0, np.ones(16))
+        assert out.match_ids.shape == (16, 2) and sg.stats["keyframes"] == 16
         assert not any(m == "jax" or m.startswith(("jax.", "mlis_tpu.")) or m == "mlis_tpu"
                        for m, v in sys.modules.items() if v is not None)
         print("ok")
