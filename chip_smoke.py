@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port (mlis_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py                  # the check, on CUDA device 0
-    python3 chip_smoke.py --device cpu --keyframes 16 --scans 600
-                                           # rehearsal of every phase on the CPU
+    python3 chip_smoke.py --device cpu --keyframes 16 --scans 600 \
+        --demo-iters 2 4 --real-iters 1 4  # rehearsal of every phase on the CPU
 
 Phases, one line each as they end:
 
@@ -111,6 +111,24 @@ Phases, one line each as they end:
    accepted, each trap rejected, 512 frames card against CPU), then
    ``measure_compute_rate``. Each part prints its seconds, rate, peak
    memory and launches; a launch other than K1's in the sweeps fails it.
+11. the pose-graph back end and host evaluation, outside inference mode
+   (the solvers differentiate): (a) ``python -m mlis_tpu_torch pgo --seed
+   0`` at the demo's defaults (20 Gauss-Newton steps of 256 CG iterations,
+   six solves, each CG iteration replayed from a CUDA graph), held to the
+   JAX package's demo contract, then the six solves at 3 x 32 on the card
+   and on the CPU from the same inputs (poses within DEMO_POSE_ATOL,
+   SC / GNC / PCM decisions equal outside DECISION_BAND of the cut);
+   (b) ``opt.scale.run_pgo_real`` with the JAX package's defaults (12 x
+   1024, three solves, every candidate) on a synthetic LeGO-LOAM-size
+   traversal of 2,406 poses written as TUM files, its counts beside the
+   published run's and equal to one K1 launch's, gated < odometry <
+   ungated ATE, then one Gauss-Newton step of the ungated graph eager and
+   from the graph on the card and on the CPU, with the device operations
+   and seconds per CG step; (c) ``run_full_evaluation`` over the traversal
+   and an orb_slam3 copy with a planted 0.1 m error (recovered within 2%),
+   the summary tables, Table IV CSV and summary markdown, and the gate and
+   evaluate CLIs (two K1 launches; the SemanticEvaluator JSON carries the
+   reports' counts and rates).
 Phases 5, 6, 8 and 9 run like phase 3 (warm-up, three timed runs, one
 profiled run), with every launch counter set to 0 before each run.
 
@@ -125,6 +143,7 @@ without the mlis_tpu_torch package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -1932,12 +1951,431 @@ def phase_floor_labelling(dev, args) -> dict:
     return {"launches": k1}
 
 
+# -- phase 11: the back end and evaluation ----------------------------------------
+
+# run_pgo_real's LeGO-LOAM scale (mlis_tpu/opt/scale.py:1-27): 2,406 poses over
+# the four floor files, split by the floors' path lengths (187 / 65 / 66 / 128 m,
+# mlis_tpu/eval/comprehensive.py:49), at 10 Hz
+LEGO_FLOORS = (("5th_floor", 5, 1009, 187.0), ("1st_floor", 1, 351, 65.0),
+               ("4th_floor", 4, 356, 66.0), ("2nd_floor", 2, 690, 128.0))
+LEGO_RATE_HZ = 10.0
+# each floor walks its own corridor loop again and again from the elevator
+# corner (0, 0), shifted up to 2 m: same-floor revisits on every floor,
+# cross-floor aliases where the loops overlap
+LEGO_LOOPS_M = ((20.0, 10.0), (10.0, 6.0), (10.0, 6.0), (16.0, 8.0))
+LEGO_SHIFTS_M = ((0.0, 0.0), (1.0, 1.0), (2.0, 0.0), (0.0, 2.0))
+LEGO_Z_DRIFT_M = 0.25  # the published z collapses to a drift near 0
+LEGO_XY_NOISE_M = 0.05
+REFERENCE_COUNTS = (87044, 21477, 65567)  # the published LeGO-LOAM run (scale.py:4-6)
+ORB_SCALE = 1.3  # orb_slam3's copy: rescaled, rotated, shifted, with a planted error
+ORB_ERROR_M = 0.1  # +-0.1 m on z, alternating pose by pose: rmse 0.1 m after alignment
+ORB_ATE_RTOL = 0.02
+DEMO_CHECK = (3, 32)  # (num_iters, cg_iters) of the demo's card-vs-CPU check
+# card vs CPU after DEMO_CHECK's solves, m: the aliased closures (ungated, and
+# GNC's 30 rounds over them) leave CG at 32 iterations far from converged, and
+# there the JAX package and the port on one CPU already part by 0.069 / 0.125 m
+DEMO_POSE_ATOL = {"odometry": 0.01, "gated": 0.01, "sc": 0.01, "pcm": 0.01,
+                  "ungated": 0.25, "gnc": 0.25}
+DECISION_BAND = 0.1  # a switch or weight this close to the 0.5 cut may flip with rounding
+REAL_CHECK = (1, 32)  # of the LeGO-scale Gauss-Newton step's checks
+REAL_STEP_RTOL = 0.01  # card vs CPU, a share of the step's largest move
+GRAPH_ATOL = 1e-4  # m, the CUDA graph's step against the eager step
+
+
+def lego_traversal(seed: int = 0):
+    """[(sequence, floor, Trajectory)] of a synthetic LeGO-LOAM-size
+    traversal: each floor walks its corridor loop (LEGO_LOOPS_M, shifted by
+    LEGO_SHIFTS_M) from the elevator corner for the floor's path length;
+    z drifts within +-0.25 m of 0 (the published geometry collapses the
+    floors), 5 cm of xy noise, yaw along the corridor."""
+    from mlis_tpu_torch.core.trajectory import Trajectory
+
+    rng = np.random.default_rng(seed)
+    out, t0 = [], 1.7e9
+    for (name, floor, n, length), (W, H), shift in zip(LEGO_FLOORS, LEGO_LOOPS_M, LEGO_SHIFTS_M):
+        s = np.mod(np.linspace(0, length, n), 2 * (W + H))
+        side = np.searchsorted([W, W + H, 2 * W + H], s, side="right")
+        u = s - np.asarray([0.0, W, W + H, 2 * W + H])[side]
+        x = np.choose(side, [u, np.full_like(u, W), W - u, np.zeros_like(u)])
+        y = np.choose(side, [np.zeros_like(u), u, np.full_like(u, H), H - u])
+        yaw = np.asarray([0.0, 0.5, 1.0, 1.5])[side] * np.pi
+        phase = 2 * np.pi * rng.uniform(1, 3) * np.linspace(0, 1, n) + rng.uniform(0, 2 * np.pi)
+        pos = np.column_stack([x + shift[0], y + shift[1], LEGO_Z_DRIFT_M * np.sin(phase)])
+        pos[:, :2] += rng.normal(0, LEGO_XY_NOISE_M, (n, 2))
+        yaw = yaw + rng.normal(0, 0.01, n)
+        quat = np.column_stack([np.zeros(n), np.zeros(n), np.sin(yaw / 2), np.cos(yaw / 2)])
+        out.append((name, floor, Trajectory(t0 + np.arange(n) / LEGO_RATE_HZ, pos, quat)))
+        t0 += n / LEGO_RATE_HZ + 30.0
+    return out
+
+
+def orb_copy(seqs, seed: int = 1):
+    """orb_slam3's run of the same traversal on the same clock: each floor
+    scaled by ORB_SCALE, rotated and shifted, with +-ORB_ERROR_M on z
+    alternating pose by pose (zero mean, uncorrelated with the path, so no
+    alignment absorbs it)."""
+    from mlis_tpu_torch.core.trajectory import Trajectory
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for name, floor, tr in seqs:
+        a = rng.uniform(0, 2 * np.pi)
+        R = np.asarray([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]])
+        err = np.zeros_like(tr.positions)
+        err[:, 2] = ORB_ERROR_M * (1 - 2 * (np.arange(len(tr)) % 2))
+        pos = ORB_SCALE * (tr.positions + err) @ R.T + rng.uniform(-5, 5, 3)
+        out.append((name, floor, Trajectory(tr.timestamps.copy(), pos, tr.quaternions.copy())))
+    return out
+
+
+def write_tree(root: str, algorithm: str, seqs) -> None:
+    from mlis_tpu_torch.core.trajectory import save_tum
+
+    os.makedirs(os.path.join(root, algorithm), exist_ok=True)
+    for name, _, tr in seqs:
+        save_tum(tr, os.path.join(root, algorithm, f"{name}.txt"))
+
+
+def cg_step_profile(dev, R0, t0, factors, reps: int = 3) -> dict:
+    """One CG step of a Gauss-Newton step of ``factors`` on the card, eager
+    and replayed from the CUDA graph: its device operations and device time
+    (torch.profiler, a step of 3 CG iterations less one of 2) and its wall
+    seconds (the best of ``reps`` Gauss-Newton steps of ``hi`` CG iterations
+    less the best of ``lo``, so the vjp, the capture and the SVD cancel
+    out); then the graph's device time with the padded edges left on pose 0,
+    as build_factors makes them (the solvers spread them over the poses)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlis_tpu_torch.opt import pose_graph
+
+    def step(cg: int, graph: bool):
+        return pose_graph.optimize_pose_graph(R0, t0, factors, num_iters=1, cg_iters=cg,
+                                              cuda_graph=graph)
+
+    def device_step(graph: bool):
+        runs = []
+        for cg in (2, 3):
+            step(cg, graph)
+            sync(dev)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                step(cg, graph)
+                sync(dev)
+            by_name: dict = {}
+            for e in prof.profiler.kineto_results.events():
+                if e.device_type() == DeviceType.CUDA:
+                    by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns() / 1e3
+                    by_name["#"] = by_name.get("#", 0) + 1
+            runs.append(by_name)
+        diff = {k: runs[1].get(k, 0) - runs[0].get(k, 0) for k in runs[1]}
+        return int(diff.pop("#")), diff
+
+    def wall(cg: int, graph: bool) -> float:
+        best = float("inf")
+        for _ in range(reps):
+            sync(dev)
+            t = time.perf_counter()
+            step(cg, graph)
+            sync(dev)
+            best = min(best, time.perf_counter() - t)
+        return best
+
+    out = {}
+    for graph, (lo, hi) in ((False, (4, 20)), (True, (16, 80))):
+        key = "graph" if graph else "eager"
+        ops, by_kernel = device_step(graph)
+        out[f"{key}_ops_per_cg_step"] = ops
+        out[f"{key}_device_us_per_cg_step"] = sum(by_kernel.values())
+        out[f"{key}_s_per_cg_step"] = (wall(hi, graph) - wall(lo, graph)) / (hi - lo)
+        if graph:
+            for name, us in sorted(by_kernel.items(), key=lambda x: -x[1])[:8]:
+                print(f"  cg step kernel {us:.1f}us {name[:110]}", flush=True)
+    spread_inputs = pose_graph._inputs
+
+    def pads_on_pose_0(R0, t0, f):
+        R, t, g = spread_inputs(R0, t0, f)
+        return R, t, g._replace(edge_i=f.edge_i, edge_j=f.edge_j)
+
+    pose_graph._inputs = pads_on_pose_0
+    try:
+        out["graph_device_us_per_cg_step_pads_on_pose_0"] = sum(device_step(True)[1].values())
+    finally:
+        pose_graph._inputs = spread_inputs
+    return out
+
+
+def check_demo_contract(o: dict) -> None:
+    """The JAX package's demo contract (tests/test_pose_graph.py:151-190,
+    254-266; tests/test_pcm.py:84-90)."""
+    g, odo, ung = o["gated_ate_rmse"], o["odometry_ate_rmse"], o["ungated_ate_rmse"]
+    checks = {
+        "gate_correct": o["gate_correct"],
+        "gated < 0.6 odometry": g < 0.6 * odo,
+        "ungated > 2 odometry": ung > 2.0 * odo,
+        "ungated > 5 gated": ung > 5.0 * g,
+        "pcm_false_removed == 1": o["pcm_false_removed"] == 1.0,
+        "pcm_true_kept == 1": o["pcm_true_kept"] == 1.0,
+        "pcm <= 1.1 gated": o["pcm_ate_rmse"] <= 1.1 * g,
+    }
+    for v in ("sc", "gnc"):
+        checks[f"{v}_false_disabled == 1"] = o[f"{v}_false_disabled"] == 1.0
+        checks[f"{v}_true_kept >= 0.9"] = o[f"{v}_true_kept"] >= 0.9
+        checks[f"{v} < 1.5 gated"] = o[f"{v}_ate_rmse"] < 1.5 * g
+        checks[f"{v} < 0.25 ungated"] = o[f"{v}_ate_rmse"] < 0.25 * ung
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"pgo demo contract: {failed} in {o}")
+
+
+def demo_solves(prob, device, num_iters: int, cg_iters: int) -> dict:
+    """The demo's six solves on ``device`` from the same host inputs:
+    (translations, closure switches or GNC weights) per variant, and PCM's
+    keep mask."""
+    from mlis_tpu_torch.opt import demo
+    from mlis_tpu_torch.opt.pose_graph import optimize_pose_graph, optimize_pose_graph_gnc
+
+    dev = torch.device(device)
+    R0 = torch.as_tensor(prob["init_R"], device=dev)
+    t0 = torch.as_tensor(prob["init_t"], device=dev)
+    A, n_odo = len(prob["pairs"]), len(prob["odo_edges"])
+    pcm_keep = demo.demo_pcm_keep(prob, dev)
+    out = {"pcm_keep": pcm_keep}
+    for name, mask, robust in (("odometry", np.zeros(A, bool), False),
+                               ("gated", prob["accept"], False), ("ungated", np.ones(A, bool), False),
+                               ("sc", np.ones(A, bool), True), ("gnc", np.ones(A, bool), True),
+                               ("pcm", pcm_keep, False)):
+        f, keep = demo.demo_factors(prob, mask, robust, True, dev)
+        if name == "gnc":
+            _, t, _, w = optimize_pose_graph_gnc(R0, t0, f, inner_iters=2, cg_iters=cg_iters)
+        else:
+            _, t, _, w = optimize_pose_graph(R0, t0, f, num_iters=num_iters, cg_iters=cg_iters)
+        out[name] = (t.cpu().numpy(), w.cpu().numpy()[n_odo : n_odo + len(keep)])
+    return out
+
+
+def phase_backend(dev, args) -> dict:
+    """Phase 11: the pose-graph back end and host evaluation. (a) the pgo
+    CLI at the demo's defaults against the JAX package's contract, then the
+    six solves on the card and the CPU from the same inputs; (b)
+    run_pgo_real at LeGO-LOAM's size on a synthetic traversal, K1's counts
+    against the host pairs', launches and seconds per CG step, one
+    Gauss-Newton step eager against the CUDA graph and the card against
+    the CPU; (c) run_full_evaluation, the summary artifacts, and the gate
+    and evaluate CLIs over the TUM files."""
+    import io
+    import tempfile
+
+    from mlis_tpu_torch import cli
+    from mlis_tpu_torch.eval import comprehensive, report
+    from mlis_tpu_torch.ops.pairwise import candidate_counts, candidate_counts_host
+    from mlis_tpu_torch.opt import demo, scale
+    from mlis_tpu_torch.opt.pose_graph import optimize_pose_graph
+
+    cpu = torch.device("cpu")
+    rehearsal = dev.type != "cuda"
+    k1 = 0
+
+    # -- (a) the pgo CLI at the demo's defaults (20 x 256, six solves)
+    part = part_begin(dev)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if rehearsal:  # the CPU takes ~25 ms a CG step: the CLI's plumbing at a reduced depth
+            with patched(demo, "run_pgo_demo", num_iters=args.demo_iters[0],
+                         cg_iters=args.demo_iters[1]):
+                rc = cli.main(["pgo", "--seed", "0", "--device", "cpu"])
+        else:
+            rc = cli.main(["pgo", "--seed", "0"])
+    o = json.loads(buf.getvalue())
+    part_end(dev, "11a pgo cli", part, {}, rc=rc, **{k: o[k] for k in (
+        "n_poses", "n_candidates", "gate_accepted", "gate_rejected", "ate_init",
+        "odometry_ate_rmse", "gated_ate_rmse", "ungated_ate_rmse", "sc_ate_rmse", "gnc_ate_rmse",
+        "pcm_ate_rmse", "sc_false_disabled", "sc_true_kept", "gnc_false_disabled",
+        "gnc_true_kept", "pcm_false_removed", "pcm_true_kept")})
+    if rc != 0:
+        raise AssertionError(f"pgo CLI exited {rc}")
+    if not rehearsal:
+        check_demo_contract(o)
+    # the six solves at DEMO_CHECK on the card and on the CPU from one set of inputs
+    prob = demo.demo_problem(0, 2, cpu)
+    ni, cg = DEMO_CHECK
+    runs = {d: demo_solves(prob, d, ni, cg) for d in (dev, cpu)}
+    worst, excused = {}, {}
+    for name in ("odometry", "gated", "ungated", "sc", "gnc", "pcm"):
+        (t_a, w_a), (t_b, w_b) = runs[dev][name], runs[cpu][name]
+        worst[name] = float(np.abs(t_a - t_b).max())
+        near = (np.abs(w_a - 0.5) < DECISION_BAND) | (np.abs(w_b - 0.5) < DECISION_BAND)
+        excused[name] = int(near.sum())
+        if not np.array_equal((w_a < 0.5)[~near], (w_b < 0.5)[~near]):
+            raise AssertionError(f"demo {name}: card and CPU decide differently: {w_a} vs {w_b}")
+    if not np.array_equal(runs[dev]["pcm_keep"], runs[cpu]["pcm_keep"]):
+        raise AssertionError("demo PCM: card and CPU keep different closures")
+    if not rehearsal:  # the CG step at the demo's scale: the SC graph, 256 edges
+        f_sc, _ = demo.demo_factors(prob, np.ones(len(prob["pairs"]), bool), True, True, dev)
+        prof = cg_step_profile(dev, torch.as_tensor(prob["init_R"], device=dev),
+                               torch.as_tensor(prob["init_t"], device=dev), f_sc)
+        print("  demo cg step " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                                           for k, v in prof.items()), flush=True)
+    print(f"  demo card_vs_cpu num_iters={ni} cg_iters={cg} max_pose_diff_m="
+          + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}, separators=(",", ":"))
+          + " tolerance_m=" + json.dumps(DEMO_POSE_ATOL, separators=(",", ":"))
+          + f" decisions_equal=True within_{DECISION_BAND}_of_the_cut="
+          + json.dumps(excused, separators=(",", ":")), flush=True)
+    bad = {k: v for k, v in worst.items() if v > DEMO_POSE_ATOL[k]}
+    if bad:
+        raise AssertionError(f"demo card vs CPU: poses differ by {bad} m")
+
+    # -- (b) run_pgo_real at LeGO-LOAM's size on a synthetic traversal
+    root = tempfile.mkdtemp(prefix="mlis_phase11_")
+    seqs = lego_traversal(0)
+    write_tree(root, "lego_loam", seqs)
+    part = part_begin(dev)
+    real = scale.run_pgo_real(trajectory_root=root, num_iters=args.real_iters[0],
+                              cg_iters=args.real_iters[1], device=dev)
+    counts = (real["candidates"], real["same_floor"], real["cross_floor"])
+    part_end(dev, "11b pgo real", part, {}, poses=real["n_poses"],
+             counts=",".join(map(str, counts)),
+             reference_counts=",".join(map(str, REFERENCE_COUNTS)),
+             cross_share=f"{counts[2] / counts[0]:.4f}", reference_cross_share=f"{REFERENCE_COUNTS[2] / REFERENCE_COUNTS[0]:.4f}",
+             num_iters=args.real_iters[0], cg_iters=args.real_iters[1],
+             **{f"{v}_{k}": real[f"{v}_{k}"] for v in ("odometry", "gated", "ungated")
+                for k in ("ate_rmse", "ate_max", "n_edges", "solve_s")},
+             ate_init=real["ate_init"],
+             gated_over_odometry=f"{real['gated_ate_rmse'] / real['odometry_ate_rmse']:.4f}",
+             jax_slow_test_bound_gated=0.2,
+             ungated_over_odometry=f"{real['ungated_ate_rmse'] / real['odometry_ate_rmse']:.4f}",
+             jax_slow_test_bound_ungated=2.0)
+    _, _, floors, pub = scale.load_real_scene(root)
+    part = part_begin(dev)
+    k1_counts = candidate_counts(pub, floors, device=dev)
+    k1 += part_end(dev, "11b sweep", part, {"tri_count": 1}, counts=",".join(map(str, k1_counts)))[
+        "tri_count"]
+    if k1_counts != counts:
+        raise AssertionError(f"K1 counts {k1_counts} vs the host pairs' {counts}")
+    if not rehearsal and not (real["gated_ate_rmse"] < real["odometry_ate_rmse"]
+                              < real["ungated_ate_rmse"]):
+        raise AssertionError(f"pgo real: gated < odometry < ungated fails: {real}")
+    # one Gauss-Newton step of the ungated graph: eager and graph on the card, the CPU
+    rprob = scale.real_problem(root, device=cpu)
+    f_cpu = scale.real_factors(rprob, True, True, device=cpu)
+    R0 = torch.as_tensor(rprob["init_R"].astype(np.float32))
+    t0 = torch.as_tensor(rprob["init_t"].astype(np.float32))
+    ni, cg = REAL_CHECK
+    step = {"cpu": optimize_pose_graph(R0, t0, f_cpu, num_iters=ni, cg_iters=cg)[1]}
+    if not rehearsal:
+        f_dev = f_cpu.to(dev)
+        for graph in (False, True):
+            step["graph" if graph else "eager"] = optimize_pose_graph(
+                R0.to(dev), t0.to(dev), f_dev, num_iters=ni, cg_iters=cg, cuda_graph=graph)[1].cpu()
+        moved = float((step["cpu"] - t0).abs().max())
+        d_cpu = float((step["graph"] - step["cpu"]).abs().max())
+        d_graph = float((step["graph"] - step["eager"]).abs().max())
+        prof = cg_step_profile(dev, R0.to(dev), t0.to(dev), f_dev)
+        print(f"  real gn step num_iters={ni} cg_iters={cg} step_max_m={moved:.6g} "
+              f"card_vs_cpu_max_m={d_cpu:.3g} (tolerance {REAL_STEP_RTOL} of the step) "
+              f"graph_vs_eager_max_m={d_graph:.3g} (tolerance {GRAPH_ATOL}) "
+              + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                         for k, v in prof.items()), flush=True)
+        if d_cpu > REAL_STEP_RTOL * moved or d_graph > GRAPH_ATOL:
+            raise AssertionError(f"real GN step: card vs CPU {d_cpu}, graph vs eager {d_graph}")
+
+    # -- (c) host evaluation over the TUM files, and the gate / evaluate CLIs
+    write_tree(root, "orb_slam3", orb_copy(seqs))
+    out_dir = os.path.join(root, "out")
+    part = part_begin(dev)
+    ev = comprehensive.run_full_evaluation(
+        root, output_path=os.path.join(out_dir, "final_evaluation.json"),
+        algorithms=["lego_loam", "orb_slam3"], verbose=False)
+    ates = {f: ev["orb_slam3"][f]["ate_vs_lego"]["rmse"] for f, *_ in LEGO_FLOORS}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["gate", "--trajectory-root", root, "--output", out_dir, "--algorithms",
+                       "orb_slam3", "lego_loam", "--device", dev.type])
+    gate_json = json.load(open(os.path.join(out_dir, "semantic_gating_metrics.json")))
+    tables = comprehensive.summary_tables(ev)
+    report.write_table_iv_csv(ev, os.path.join(out_dir, "table_iv.csv"))
+    report.write_benchmark_summary(
+        ev, {a: gate_json_metrics(gate_json[a]) for a in gate_json},
+        os.path.join(out_dir, "BENCHMARK_RESULTS_SUMMARY.md"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc_eval = cli.main(["evaluate", "--trajectory-root", root, "--output",
+                            os.path.join(out_dir, "cli")])
+    k1 += part_end(dev, "11c evaluation", part, {"tri_count": 2}, gate_rc=rc, evaluate_rc=rc_eval,
+                   ate_vs_lego=json.dumps({k: float(f"{v:.6g}") for k, v in ates.items()},
+                                          separators=(",", ":")),
+                   planted_m=ORB_ERROR_M, rtol=ORB_ATE_RTOL,
+                   cross_floor_rates=json.dumps({a: round(gate_json[a]["loop_closure"]
+                                                          ["cross_floor_rate"], 6)
+                                                 for a in gate_json}, separators=(",", ":")))["tri_count"]
+    if rc or rc_eval:
+        raise AssertionError(f"gate CLI {rc}, evaluate CLI {rc_eval}")
+    bad = {f: a for f, a in ates.items() if abs(a / ORB_ERROR_M - 1) > ORB_ATE_RTOL}
+    if bad or any(not ev["orb_slam3"][f]["valid"] for f in ates):
+        raise AssertionError(f"evaluation: ate_vs_lego {ates}, planted {ORB_ERROR_M} m")
+    for algo in ("orb_slam3", "lego_loam"):
+        text = open(os.path.join(out_dir, f"{algo}_semantic_analysis.txt")).read()
+        lc = gate_json[algo]["loop_closure"]
+        want = candidate_counts_host(*combined_positions(root, algo))
+        if (lc["total_candidates"], lc["same_floor_candidates"], lc["cross_floor_candidates"]) \
+                != want or f"Cross-floor rate: {lc['cross_floor_rate']:.1%}" not in text:
+            raise AssertionError(f"gate CLI {algo}: {lc} vs host {want} and its report")
+    if (gate_json["lego_loam"]["loop_closure"]["total_candidates"],
+            gate_json["lego_loam"]["loop_closure"]["same_floor_candidates"]) != counts[:2]:
+        raise AssertionError("gate CLI lego_loam counts differ from run_pgo_real's")
+    cli_eval = json.load(open(os.path.join(out_dir, "cli", "final_evaluation.json")))
+    if cli_eval["orb_slam3"]["5th_floor"]["ate_vs_lego"]["rmse"] != ates["5th_floor"]:
+        raise AssertionError("evaluate CLI disagrees with run_full_evaluation")
+    for f in ("table_iv.csv", "BENCHMARK_RESULTS_SUMMARY.md"):
+        if not os.path.getsize(os.path.join(out_dir, f)):
+            raise AssertionError(f"{f} is empty")
+    if "TABLE 3: ATE vs LeGO-LOAM" not in tables:
+        raise AssertionError("summary tables incomplete")
+    shutil.rmtree(root)
+    log("11 back end", time.perf_counter(), K1_launches=k1)
+    return {"launches": k1}
+
+
+def gate_json_metrics(d: dict):
+    """A LoopClosureMetrics from its SemanticEvaluator JSON block."""
+    from mlis_tpu_torch.eval.semantic_eval import LoopClosureMetrics
+
+    lc = d["loop_closure"]
+    return LoopClosureMetrics(**{k: lc[k] for k in LoopClosureMetrics.__dataclass_fields__})
+
+
+def combined_positions(root: str, algorithm: str):
+    """(positions, floor labels) of an algorithm's four floor files combined."""
+    from mlis_tpu_torch.core.dataset import NUFRM3F, TRANSIT_FLOORS
+    from mlis_tpu_torch.core.trajectory import combine_sequences
+
+    mat, labels = combine_sequences(NUFRM3F(root, algorithm).load(), TRANSIT_FLOORS)
+    return mat[:, 1:4], labels
+
+
+@contextlib.contextmanager
+def patched(module, name: str, **kw):
+    """``module.name`` with keyword defaults overridden, for the duration."""
+    import functools
+
+    orig = getattr(module, name)
+    setattr(module, name, functools.partial(orig, **kw))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--keyframes", type=int, default=128)
     ap.add_argument("--scans", type=int, default=LIDAR_SCANS,
                     help="LiDAR scans of phase 10 (at least 600, for the rides to fit)")
+    ap.add_argument("--real-iters", type=int, nargs=2, default=[12, 1024],
+                    metavar=("NUM_ITERS", "CG_ITERS"),
+                    help="phase 11's run_pgo_real depth (default: the JAX package's 12 x 1024)")
+    ap.add_argument("--demo-iters", type=int, nargs=2, default=[20, 256],
+                    metavar=("NUM_ITERS", "CG_ITERS"),
+                    help="the pgo CLI's depth in a CPU rehearsal (the card runs its defaults)")
     args = ap.parse_args()
 
     def _timeout(signum, frame):
@@ -1960,6 +2398,8 @@ def main() -> int:
         path_c = phase_path_c(dev, args)
         path_d = phase_path_d(dev, args)
         floor_path = phase_floor_labelling(dev, args)
+    # the solvers differentiate: outside inference mode
+    backend = phase_backend(dev, args)
     signal.alarm(0)
     print(f"[total] {time.perf_counter() - t_all:.3f}s", flush=True)
     if dev.type != "cuda":
@@ -1970,9 +2410,11 @@ def main() -> int:
         "route": "cuda",
         "source": "mlis_tpu_torch/csrc/pairwise.cu",
         "replaces": "mlis_tpu/ops/pairwise.py:138",
-        # one run of each path that reaches it: phase 3's sweep, phase 10's three
-        "launches": main_path["launches"] + floor_path["launches"],
-        "launches_by_path": {"3": main_path["launches"], "10": floor_path["launches"]},
+        # one run of each path that reaches it: phase 3's sweep, phase 10's
+        # three, phase 11's three (the LeGO-scale count and the gate CLI's two)
+        "launches": main_path["launches"] + floor_path["launches"] + backend["launches"],
+        "launches_by_path": {"3": main_path["launches"], "10": floor_path["launches"],
+                             "11": backend["launches"]},
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],

@@ -84,6 +84,11 @@ TRAJECTORY_FILE_PATTERNS: Dict[str, List[str]] = {
 # Start floor of every algorithm integration (all runs start on the 5th floor).
 START_FLOOR = 5
 
+# Where the reference repository keeps its published trajectories, relative
+# to a working directory with the reference checked out beside it: the
+# default root of the gate / evaluate CLI and of opt.scale.
+REFERENCE_TRAJECTORY_ROOT = "reference/results/trajectories"
+
 
 @dataclass
 class NUFRM3F:

@@ -174,8 +174,9 @@ def test_gate_matches_mlis_tpu(strict):
 
 
 def test_port_runs_without_jax_or_mlis_tpu():
-    """mlis_tpu_torch imports and sweeps with jax absent and any mlis_tpu
-    import refused."""
+    """Every module of mlis_tpu_torch imports, and the sweep, the gate paths
+    and the pose-graph demo run, with jax absent and any mlis_tpu import
+    refused."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -188,19 +189,18 @@ def test_port_runs_without_jax_or_mlis_tpu():
                 return None
 
         sys.meta_path.insert(0, Refuse())
+        import importlib, pkgutil
         import numpy as np
         import mlis_tpu_torch
+        # every module of the package, those of later slices too (__main__
+        # would run the CLI)
+        names = [m.name for m in pkgutil.walk_packages(mlis_tpu_torch.__path__, "mlis_tpu_torch.")
+                 if m.name != "mlis_tpu_torch.__main__"]
+        for name in names:
+            importlib.import_module(name)
+        assert {"mlis_tpu_torch.opt.pose_graph", "mlis_tpu_torch.eval.report",
+                "mlis_tpu_torch.cli", "mlis_tpu_torch.ops.geometry"} <= set(names), names
         from mlis_tpu_torch.ops.pairwise import candidate_counts, candidate_counts_host
-        import mlis_tpu_torch.gating.full_gate, mlis_tpu_torch.gating.integration
-        import mlis_tpu_torch.models.lightglue, mlis_tpu_torch.models.mixvpr
-        import mlis_tpu_torch.ops.epipolar, mlis_tpu_torch._build
-        import mlis_tpu_torch.ops.attention, mlis_tpu_torch.ops.flash_attention
-        import mlis_tpu_torch.ops.pooling, mlis_tpu_torch.models.vit
-        import mlis_tpu_torch.models.cricavpr, mlis_tpu_torch.gating.place_recognition
-        import mlis_tpu_torch.eval.quality, mlis_tpu_torch.eval.semantic_eval
-        import mlis_tpu_torch.train.matcher_trainer, mlis_tpu_torch.train.pretrain_vpr
-        import mlis_tpu_torch.ops.sinkhorn, mlis_tpu_torch.ops.knn, mlis_tpu_torch.weights
-        import mlis_tpu_torch.models.salad, mlis_tpu_torch.models.anyloc
         from mlis_tpu_torch.gating.place_recognition import _build_vpr, process_image_sequence
         rng = np.random.default_rng(0)
         pos = rng.normal(size=(700, 3)) * 3
@@ -248,6 +248,9 @@ def test_port_runs_without_jax_or_mlis_tpu():
         out = sg.add_keyframes(rng.normal(size=(16, 8)).astype(np.float32),
                                np.arange(16) * 20.0, np.ones(16))
         assert out.match_ids.shape == (16, 2) and sg.stats["keyframes"] == 16
+        from mlis_tpu_torch.opt.demo import run_pgo_demo
+        pgo = run_pgo_demo(laps=2, num_iters=2, cg_iters=8, device="cpu")
+        assert pgo["gate_correct"] and np.isfinite(pgo["gnc_ate_rmse"])
         assert not any(m == "jax" or m.startswith(("jax.", "mlis_tpu.")) or m == "mlis_tpu"
                        for m, v in sys.modules.items() if v is not None)
         print("ok")
