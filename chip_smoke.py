@@ -129,7 +129,31 @@ Phases, one line each as they end:
    the summary tables, Table IV CSV and summary markdown, and the gate and
    evaluate CLIs (two K1 launches; the SemanticEvaluator JSON carries the
    reports' counts and rates).
-Phases 5, 6, 8 and 9 run like phase 3 (warm-up, three timed runs, one
+12. model families and weight import, under inference mode: (a) the
+   official LoFTR (``LoFTRConfig.official_full``: d_model 256, 8 heads,
+   depth 4, block dims 128/196/256, fine 128, bf16) with random 0.5x
+   Kaiming weights drawn from torch.Generator(0) in the kornia layout and
+   loaded through ``load_torch_state_dict``, as the matcher of the fullres
+   MixVPR gate on path B's keyframes (540x720, resized to 536x720; verify
+   batches of 32; coarse threshold 1e-6): pairs/s, the device time of
+   ``loftr.match`` (``loftr.coarse``, ``loftr.fine``) and
+   ``epipolar.ransac``, peak memory, matches per pair; then float32 card
+   vs CPU on 2 revisit pairs (coarse selections equal outside 1% of the
+   threshold, keypoints within 5e-3 px) and a save_weights / load_weights
+   round trip with identical matches; (b) YOLOv8n (random, flax's
+   initialisers from torch.Generator(0)) in ``DynamicObjectFilter`` on
+   the 128 fullres keyframes as BGR, batches of 64 at 544x736: images/s,
+   peak memory, ``get_metrics()``; float32 card vs CPU on 4 frames (raw
+   head maps within 1e-4 of their largest magnitude, NMS on the same boxes
+   and the masks of planted boxes of every dynamic class and a chair
+   exact); (c) official-layout dicts drawn on the card from
+   torch.Generator(0): DINOv2 ViT-B/14 into CricaVPR (phase 3's 128
+   keyframes, 24 dense-kernel launches, cosine >= 0.999 against the CPU
+   on 4), torchvision ResNet-50 into MixVPR (the same checks, no launch),
+   cvg/LightGlue + magicleap SuperPoint into LightGlue (float32 scores on
+   the same keypoints within 1e-4 of the CPU's, then save_weights /
+   from_checkpoint with equal weights and identical scores).
+Phases 5, 6, 8, 9 and 12a run like phase 3 (warm-up, three timed runs, one
 profiled run), with every launch counter set to 0 before each run.
 
 The last two lines of standard output are the card's name and power limit
@@ -694,7 +718,7 @@ def build_pipeline(dev, dtype, n_kpts: int = 1024):
 
 
 STAGES = ("gate.detect", "gate.encode", "gate.retrieval", "lightglue.match", "superglue.sinkhorn",
-          "loftr.match", "orb.match", "epipolar.ransac")
+          "loftr.match", "loftr.coarse", "loftr.fine", "orb.match", "epipolar.ransac")
 
 
 def profile_gate(dev, pipe, inputs, gen, best_wall: float, encode_batch_size: int = 128) -> None:
@@ -821,11 +845,12 @@ def launch_counts() -> dict:
             "dense_attention": att.fused_attention.launches}
 
 
-def drive_gate_path(phase: str, dev, pipe, inputs, expected_launches) -> dict:
+def drive_gate_path(phase: str, dev, pipe, inputs, expected_launches, report=None) -> dict:
     """One warm-up and TIMED_REPS timed runs of ``pipe.process`` (every
     launch counter set to 0 before each run and read after it), then one
     profiled run. ``expected_launches(result)`` gives each kernel's count
-    a run must show on the card."""
+    a run must show on the card; ``report(result)``, fields of the fastest
+    run for the summary line."""
     images, timestamps, floors, K = inputs
     gen = torch.Generator(device=dev).manual_seed(0)
     runs = []
@@ -869,7 +894,8 @@ def drive_gate_path(phase: str, dev, pipe, inputs, expected_launches) -> dict:
     log(f"{phase} summary", time.perf_counter(),
         pairs_per_s=f"{best.total_pairs / best_wall:.1f}",
         walls=",".join(f"{w:.4f}" for w, _, _ in runs), peak_mem_bytes=peak,
-        launches_per_run=json.dumps(counts, separators=(",", ":")))
+        launches_per_run=json.dumps(counts, separators=(",", ":")),
+        **(report(best) if report else {}))
     return counts
 
 
@@ -2364,6 +2390,484 @@ def patched(module, name: str, **kw):
         setattr(module, name, orig)
 
 
+# -- phase 12: model families and weight import ------------------------------------
+
+LOFTR_VERIFY_BATCH = 32
+# the coarse threshold of the random official LoFTR: 0.5x Kaiming weights
+# give dual-softmax confidences far below the released model's 0.2, so the
+# gate matches at a threshold where matches exist (the JAX package's
+# converter tests use 1e-6)
+LOFTR_THRESHOLD = 1e-6
+LOFTR_WEIGHT_SCALE = 0.5  # x Kaiming, as tests/test_convert.py draws LoFTR
+LOFTR_CHECK_PAIRS = 2
+LOFTR_BAND = 1e-2  # a selection may differ card vs CPU within this share of the threshold
+LOFTR_KPT_ATOL = 5e-3  # px, tests/test_convert.py's band
+YOLO_INPUT = (544, 736)
+YOLO_BATCH = 64
+YOLO_CHECK_FRAMES = 4
+YOLO_RAW_RTOL = 1e-4  # card vs CPU raw head maps, a share of the largest magnitude
+IMPORT_CHECK_FRAMES = 4
+IMPORT_COSINE = 0.999  # card (bf16 kernels) vs CPU (bf16 plain) descriptors
+LIGHTGLUE_SCORE_ATOL = 1e-4  # float32 matcher scores, card vs CPU on the same keypoints
+
+
+def draw_state_dict(shapes: dict, dev, scale: float = 1.0, seed: int = 0) -> dict:
+    """An official-layout state dict drawn on ``dev`` from
+    torch.Generator(seed): Kaiming-normal weights times ``scale``, norm
+    scales and running variances in [0.5, 1.5], means, biases and
+    LayerScales 0.1 N(0, 1); every value rounded to float16, so that an npz
+    round trip (float16) is exact."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for k, shape in shapes.items():
+        if len(shape) >= 2:
+            fan_in = int(np.prod(shape[1:]))
+            v = torch.randn(shape, generator=gen, device=dev) * ((2.0 / fan_in) ** 0.5 * scale)
+        elif k.endswith(("running_var", ".weight")):
+            v = 0.5 + torch.rand(shape, generator=gen, device=dev)
+        else:
+            v = 0.1 * torch.randn(shape, generator=gen, device=dev)
+        out[k] = v.half().float()
+    return out
+
+
+def _bn_shapes(prefix: str, c: int) -> dict:
+    return {f"{prefix}.{k}": (c,) for k in ("weight", "bias", "running_mean", "running_var")}
+
+
+def loftr_official_shapes(cfg) -> dict:
+    """zju3dv / kornia LoFTR's parameter names and shapes (ResNetFPN_8_2,
+    the coarse and fine LocalFeatureTransformers, FinePreprocess)."""
+    d0, d1, d2 = cfg.block_dims
+    s = {"backbone.conv1.weight": (cfg.initial_dim, 1, 7, 7),
+         **_bn_shapes("backbone.bn1", cfg.initial_dim)}
+    cin = cfg.initial_dim
+    for stage, c in enumerate((d0, d1, d2), 1):
+        for b in (0, 1):
+            tp = f"backbone.layer{stage}.{b}"
+            s[f"{tp}.conv1.weight"] = (c, cin if b == 0 else c, 3, 3)
+            s[f"{tp}.conv2.weight"] = (c, c, 3, 3)
+            s.update(_bn_shapes(f"{tp}.bn1", c))
+            s.update(_bn_shapes(f"{tp}.bn2", c))
+            if b == 0 and stage > 1:  # stride 2
+                s[f"{tp}.downsample.0.weight"] = (c, cin, 1, 1)
+                s.update(_bn_shapes(f"{tp}.downsample.1", c))
+        cin = c
+    s["backbone.layer3_outconv.weight"] = (d2, d2, 1, 1)
+    for n, lo, hi in ((2, d1, d2), (1, d0, d1)):
+        s[f"backbone.layer{n}_outconv.weight"] = (hi, lo, 1, 1)
+        s[f"backbone.layer{n}_outconv2.0.weight"] = (hi, hi, 3, 3)
+        s.update(_bn_shapes(f"backbone.layer{n}_outconv2.1", hi))
+        s[f"backbone.layer{n}_outconv2.3.weight"] = (lo, hi, 3, 3)
+
+    def encoder(prefix, d):
+        e = {f"{prefix}.{p}.weight": (d, d) for p in ("q_proj", "k_proj", "v_proj", "merge")}
+        e[f"{prefix}.mlp.0.weight"] = (2 * d, 2 * d)
+        e[f"{prefix}.mlp.2.weight"] = (d, 2 * d)
+        e.update({f"{prefix}.norm{i}.{k}": (d,) for i in (1, 2) for k in ("weight", "bias")})
+        return e
+
+    for i in range(2 * cfg.depth):
+        s.update(encoder(f"loftr_coarse.layers.{i}", cfg.coarse_dim))
+    s.update({"fine_preprocess.down_proj.weight": (cfg.fine_dim, cfg.coarse_dim),
+              "fine_preprocess.down_proj.bias": (cfg.fine_dim,),
+              "fine_preprocess.merge_feat.weight": (cfg.fine_dim, 2 * cfg.fine_dim),
+              "fine_preprocess.merge_feat.bias": (cfg.fine_dim,)})
+    for i in range(2):
+        s.update(encoder(f"loftr_fine.layers.{i}", cfg.fine_dim))
+    return s
+
+
+def dinov2_shapes(cfg) -> dict:
+    """facebookresearch/dinov2's ViT names and shapes (the keys
+    convert_dinov2_torch reads)."""
+    d, hidden = cfg.dim, int(cfg.dim * cfg.mlp_ratio)
+    s = {"patch_embed.proj.weight": (d, 3, cfg.patch_size, cfg.patch_size),
+         "patch_embed.proj.bias": (d,), "cls_token": (1, 1, d),
+         "pos_embed": (1, cfg.pos_grid**2 + 1, d), "norm.weight": (d,), "norm.bias": (d,)}
+    for i in range(cfg.depth):
+        tp = f"blocks.{i}"
+        s.update({f"{tp}.{n}.{k}": (d,) for n in ("norm1", "norm2") for k in ("weight", "bias")})
+        for name, o, fan in (("attn.qkv", 3 * d, d), ("attn.proj", d, d), ("mlp.fc1", hidden, d),
+                             ("mlp.fc2", d, hidden)):
+            s[f"{tp}.{name}.weight"] = (o, fan)
+            s[f"{tp}.{name}.bias"] = (o,)
+        s[f"{tp}.ls1.gamma"] = (d,)
+        s[f"{tp}.ls2.gamma"] = (d,)
+    return s
+
+
+def resnet50_shapes(stage_sizes=(3, 4, 6, 3), width: int = 64) -> dict:
+    """torchvision ResNet-50's names and shapes (all four stages; MixVPR's
+    converter reads the three it keeps)."""
+    s = {"conv1.weight": (width, 3, 7, 7), **_bn_shapes("bn1", width)}
+    cin = width
+    for stage, n_blocks in enumerate(stage_sizes):
+        f = width * 2**stage
+        for b in range(n_blocks):
+            tp = f"layer{stage + 1}.{b}"
+            s.update({f"{tp}.conv1.weight": (f, cin, 1, 1), f"{tp}.conv2.weight": (f, f, 3, 3),
+                      f"{tp}.conv3.weight": (4 * f, f, 1, 1)})
+            for i, c in ((1, f), (2, f), (3, 4 * f)):
+                s.update(_bn_shapes(f"{tp}.bn{i}", c))
+            if b == 0:
+                s[f"{tp}.downsample.0.weight"] = (4 * f, cin, 1, 1)
+                s.update(_bn_shapes(f"{tp}.downsample.1", 4 * f))
+            cin = 4 * f
+    return s
+
+
+def superpoint_shapes(channels=(64, 64, 128, 128), descriptor_dim: int = 256) -> dict:
+    """magicleap SuperPointNet's names and shapes."""
+    s, cin = {}, 1
+    for i, c in enumerate(channels, 1):
+        for j, suffix in enumerate("ab"):
+            s[f"conv{i}{suffix}.weight"] = (c, cin if j == 0 else c, 3, 3)
+            s[f"conv{i}{suffix}.bias"] = (c,)
+        cin = c
+    for name, shape in (("convPa", (256, cin, 3, 3)), ("convPb", (65, 256, 1, 1)),
+                        ("convDa", (256, cin, 3, 3)), ("convDb", (descriptor_dim, 256, 1, 1))):
+        s[f"{name}.weight"] = shape
+        s[f"{name}.bias"] = (shape[0],)
+    return s
+
+
+def lightglue_shapes(cfg) -> dict:
+    """cvg/LightGlue's (superpoint variant) names and shapes."""
+    d = cfg.dim
+
+    def lin(name, o, i):
+        return {f"{name}.weight": (o, i), f"{name}.bias": (o,)}
+
+    s = {"posenc.Wr.weight": (d // cfg.num_heads // 2, 2), **lin("input_proj", d, cfg.descriptor_dim)}
+    for i in range(cfg.depth):
+        tp = f"transformers.{i}"
+        s.update(lin(f"{tp}.self_attn.Wqkv", 3 * d, d))
+        s.update(lin(f"{tp}.self_attn.out_proj", d, d))
+        for blk in ("self_attn", "cross_attn"):
+            s.update(lin(f"{tp}.{blk}.ffn.0", 2 * d, 2 * d))
+            s.update({f"{tp}.{blk}.ffn.1.weight": (2 * d,), f"{tp}.{blk}.ffn.1.bias": (2 * d,)})
+            s.update(lin(f"{tp}.{blk}.ffn.3", d, 2 * d))
+        for name in ("to_qk", "to_v", "to_out"):
+            s.update(lin(f"{tp}.cross_attn.{name}", d, d))
+        s.update(lin(f"log_assignment.{i}.final_proj", d, d))
+        s.update(lin(f"log_assignment.{i}.matchability", 1, d))
+    return s
+
+
+def official_loftr(dev, dtype, sd):
+    from mlis_tpu_torch.models.loftr import LoFTR, LoFTRConfig
+
+    m = LoFTR(LoFTRConfig.official_full(dtype=dtype, match_threshold=LOFTR_THRESHOLD), device=dev)
+    m.load_torch_state_dict({k: v.to(dev) for k, v in sd.items()})
+    return m
+
+
+def compare_loftr(a, b, what: str) -> dict:
+    """Two official matchers' DenseMatches on the same pairs: the valid
+    coarse selections equal but where the confidence lies within
+    LOFTR_BAND of the threshold on the side that kept it, the refined
+    keypoints of the shared selections within LOFTR_KPT_ATOL px."""
+    k0a, k1a, sa, va = (x.cpu() for x in a)
+    k0b, k1b, sb, vb = (x.cpu() for x in b)
+    stats = {"matches": ",".join(f"{int(x)}/{int(y)}" for x, y in zip(va.sum(1), vb.sum(1))),
+             "differing": 0, "kpt_max_abs_err": 0.0}
+    for p in range(va.shape[0]):
+        cells = [{tuple(k.tolist()): (k1, float(sc)) for k, k1, sc in zip(k0[p][v[p]], k1x[p][v[p]],
+                                                                          s[p][v[p]])}
+                 for k0, k1x, s, v in ((k0a, k1a, sa, va), (k0b, k1b, sb, vb))]
+        for c in set(cells[0]) ^ set(cells[1]):
+            score = float((cells[0].get(c) or cells[1].get(c))[1])
+            stats["differing"] += 1
+            if score > LOFTR_THRESHOLD * (1 + LOFTR_BAND):
+                raise AssertionError(f"{what}: cell {c} of pair {p} selected on one side only, "
+                                     f"score {score} away from the threshold; {stats}")
+        for c in set(cells[0]) & set(cells[1]):
+            err = float((cells[0][c][0] - cells[1][c][0]).abs().max())
+            stats["kpt_max_abs_err"] = max(stats["kpt_max_abs_err"], err)
+    if stats["kpt_max_abs_err"] > LOFTR_KPT_ATOL:
+        raise AssertionError(f"{what}: refined keypoints differ: {stats}")
+    return stats
+
+
+def phase_official_loftr(dev, args) -> None:
+    """12a: the official LoFTR at its released widths (d_model 256, 8 heads,
+    depth 4, block dims 128/196/256, fine 128, bf16), random 0.5x Kaiming
+    weights from torch.Generator(0) in the official layout through
+    load_torch_state_dict, as the matcher of the fullres MixVPR gate
+    (path B's 128 keyframes at 540x720, resized to 536x720; verify batches
+    of 32); then float32 card vs CPU on 2 pairs and a save_weights /
+    load_weights round trip on the card."""
+    import tempfile
+
+    from mlis_tpu_torch.gating.full_gate import FullGatePipeline
+    from mlis_tpu_torch.gating.verification import GeometricVerifier
+    from mlis_tpu_torch.models.loftr import LoFTR, LoFTRConfig
+    from mlis_tpu_torch.ops.image import to_grayscale
+
+    t0 = time.perf_counter()
+    cuda = dev.type == "cuda"
+    inputs = keyframes(args.keyframes, 540, 720, cell=16)
+    cfg = LoFTRConfig.official_full()
+    sd = draw_state_dict(loftr_official_shapes(cfg), dev, scale=LOFTR_WEIGHT_SCALE)
+    matcher = official_loftr(dev, torch.bfloat16, sd)
+    pipe = FullGatePipeline(vpr_method="mixvpr", verifier=GeometricVerifier(matcher=matcher),
+                            similarity_threshold=0.3, min_time_gap=10.0,
+                            verify_batch=LOFTR_VERIFY_BATCH, matcher_weights=None,
+                            num_hypotheses=512, device=dev)
+    log("12a setup", t0, keyframes=len(inputs[0]), resolution="540x720 -> 536x720",
+        weights=f"vpr_mixvpr.npz+random official LoFTR ({len(sd)} tensors, "
+                f"{sum(v.numel() for v in sd.values())} parameters, torch.Generator(0))",
+        loftr=f"d_model {cfg.coarse_dim} heads {cfg.num_heads} depth {cfg.depth} "
+              f"blocks {cfg.block_dims} fine {cfg.fine_dim} bf16",
+        threshold=LOFTR_THRESHOLD, verify_batch=LOFTR_VERIFY_BATCH)
+
+    def expected(res):
+        return {"tri_count": 0, "flash_attention": 0, "dense_attention": 0}
+
+    def report(res):
+        n = np.array([r.num_matches for r in res.results])
+        return {"matches_per_pair_min": int(n.min()), "matches_per_pair_median": float(np.median(n)),
+                "matches_per_pair_max": int(n.max()), "pairs_with_matches": int((n > 0).sum())}
+
+    drive_gate_path("12a", dev, pipe, inputs, expected, report=report)
+    del pipe
+    # float32 card against CPU, and the npz round trip on the card
+    t0 = time.perf_counter()
+    images = inputs[0]
+    n = LOFTR_CHECK_PAIRS
+    q = list(range(n))
+    m = [i + max(len(images) // 8, 1) for i in q]  # the same scene on a revisit
+    gray = to_grayscale(torch.as_tensor(images[q + m]))  # (2n, 540, 720, 1) on the host
+    out = {}
+    for d in {dev, torch.device("cpu")}:
+        f32 = official_loftr(d, torch.float32, sd)
+        out[d.type] = f32.match_batch(gray[:n].to(d), gray[n:].to(d))
+        del f32
+    stats = compare_loftr(out[dev.type], out["cpu"], "12a card vs cpu") if cuda else {}
+    with tempfile.TemporaryDirectory(prefix="mlis_phase12_") as tmp:
+        path = os.path.join(tmp, "loftr_official.npz")
+        matcher.save_weights(path)
+        again = LoFTR(matcher.cfg, device=dev)
+        again.load_weights(path)
+        size = os.path.getsize(path)
+    for (k, a), b in zip(matcher.net.state_dict().items(), again.net.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"12a: {k} changed in the npz round trip")
+    a, b = (x.match_batch(gray[:n].to(dev), gray[n:].to(dev)) for x in (matcher, again))
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("12a: matches differ after the npz round trip")
+    log("12a checks", t0, pairs=n, **stats, round_trip_npz_bytes=size,
+        round_trip_matches=int(a.valid.sum()))
+
+
+def phase_yolo(dev, args) -> None:
+    """12b: YOLOv8n (random weights with flax's initialisers from
+    torch.Generator(0)) in DynamicObjectFilter on the 128 fullres keyframes
+    as BGR, batches of 64 at 544x736; then float32 card vs CPU on 4 frames
+    (raw head maps, NMS on the same boxes, the masks of planted boxes)."""
+    from mlis_tpu_torch.models import yolo
+    from mlis_tpu_torch.ops.image import resize_nhwc
+
+    t0 = time.perf_counter()
+    cuda = dev.type == "cuda"
+    gray = torch.as_tensor(keyframes(args.keyframes, 540, 720, cell=16)[0], device=dev)
+    bgr = gray[..., None].expand(*gray.shape, 3).contiguous()
+    det = yolo.YOLODetector(yolo.YOLOConfig.nano(), input_size=YOLO_INPUT, seed=0, device=dev)
+    n_params = sum(p.numel() for p in det.net.parameters())
+    log("12b setup", t0, frames=len(bgr), resolution="540x720", input=f"{YOLO_INPUT}",
+        parameters=n_params, batch=YOLO_BATCH)
+    walls = []
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    for rep in range(TIMED_REPS + 1):
+        filt = yolo.DynamicObjectFilter(det)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for s in range(0, len(bgr), YOLO_BATCH):
+            masked, mask, d = filt.filter_batch(bgr[s : s + YOLO_BATCH])
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        if cuda and any(counts.values()):
+            raise AssertionError(f"12b: kernel launches {counts}")
+        if rep:
+            walls.append(wall)
+        m = filt.get_metrics()
+        log(f"12b filter {'warmup' if rep == 0 else f'timed{rep}'}", t0,
+            images_per_s=f"{len(bgr) / wall:.1f}", frames=m.total_frames,
+            frames_with_dynamic=m.frames_with_dynamic_objects,
+            masked_share=f"{m.feature_filter_rate:.4f}", detections_valid=int(d.valid.sum()))
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    if cuda:
+        profile_run(dev, lambda: [yolo.DynamicObjectFilter(det).filter_batch(
+            bgr[s : s + YOLO_BATCH]) for s in range(0, len(bgr), YOLO_BATCH)], min(walls))
+    log("12b summary", time.perf_counter(), images_per_s=f"{len(bgr) / min(walls):.1f}",
+        walls=",".join(f"{w:.4f}" for w in walls), peak_mem_bytes=peak,
+        metrics=json.dumps(vars(m), separators=(",", ":")))
+    if m.total_frames != len(bgr) or masked.shape != bgr[-YOLO_BATCH:].shape:
+        raise AssertionError(f"12b: {m} / {tuple(masked.shape)}")
+    # float32 card against CPU
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    nets = {}
+    for d in {dev, cpu}:
+        nets[d.type] = yolo.YOLODetector(yolo.YOLOConfig.nano(dtype=torch.float32),
+                                         input_size=YOLO_INPUT, seed=0, device=d)
+    frames = bgr[:YOLO_CHECK_FRAMES].cpu()
+    x = resize_nhwc(frames.to(torch.float32).flip(-1) / 255.0, YOLO_INPUT)
+    raw = {k: n.net(x.to(n.device)) for k, n in nets.items()}
+    raw_err = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                  for a, b in zip(raw[dev.type], raw["cpu"]))
+    if raw_err > YOLO_RAW_RTOL:
+        raise AssertionError(f"12b: raw head maps card vs cpu {raw_err} > {YOLO_RAW_RTOL}")
+    boxes, cls_scores = yolo.decode_predictions(raw["cpu"], nets["cpu"].cfg, YOLO_INPUT)
+    best, classes = cls_scores.amax(-1), cls_scores.argmax(-1)
+    cfg = nets["cpu"].cfg
+    keep = {k: [t.cpu() for t in yolo.nms_fixed(boxes.to(d), best.to(d), classes.to(d),
+                                                 cfg.score_threshold, cfg.iou_threshold,
+                                                 cfg.max_detections)]
+            for k, d in (("card", dev), ("cpu", cpu))}
+    if not all(torch.equal(a, b) for a, b in zip(keep["card"], keep["cpu"])):
+        raise AssertionError("12b: NMS on the same boxes differs between the card and the CPU")
+    # planted boxes: every dynamic class and one static (56, chair)
+    gen = torch.Generator().manual_seed(0)
+    classes_p = torch.tensor(yolo.DYNAMIC_COCO_CLASSES + (56,)).repeat(YOLO_CHECK_FRAMES, 1)
+    xy = torch.rand(YOLO_CHECK_FRAMES, classes_p.shape[1], 2, generator=gen) * torch.tensor([600., 440.])
+    wh = 20 + torch.rand(YOLO_CHECK_FRAMES, classes_p.shape[1], 2, generator=gen) * 100
+    planted = torch.cat([xy, xy + wh], -1)
+    valid_p = torch.ones(classes_p.shape, dtype=torch.bool)
+    masks = {k: [t.cpu() for t in yolo.mask_dynamic_objects(frames.to(d), planted.to(d),
+                                                             classes_p.to(d), valid_p.to(d))]
+             for k, d in (("card", dev), ("cpu", cpu))}
+    if not all(torch.equal(a, b) for a, b in zip(masks["card"], masks["cpu"])):
+        raise AssertionError("12b: mask_dynamic_objects differs between the card and the CPU")
+    log("12b card vs cpu", t0, frames=YOLO_CHECK_FRAMES, raw_rel_err=raw_err,
+        nms_kept=int(keep["cpu"][3].sum()), planted_boxes=int(valid_p.sum()),
+        masked_share=f"{float(masks['cpu'][1].float().mean()):.4f}")
+
+
+def phase_weight_import(dev, args) -> dict:
+    """12c: official-layout state dicts drawn on the card from
+    torch.Generator(0) through each loader: DINOv2 ViT-B/14 into CricaVPR
+    (phase 3's 128 keyframes through the dense kernel), torchvision
+    ResNet-50 into MixVPR, cvg/LightGlue and magicleap SuperPoint into
+    LightGlue (then save_weights / load_weights); each against the CPU."""
+    import tempfile
+
+    from mlis_tpu_torch.models.cricavpr import CricaVPR
+    from mlis_tpu_torch.models.lightglue import LightGlue, MatcherConfig, extract_matches
+    from mlis_tpu_torch.models.mixvpr import MixVPR
+    from mlis_tpu_torch.models.superpoint import SuperPointConfig
+    from mlis_tpu_torch.models.vit import ViTConfig
+    from mlis_tpu_torch.ops.image import to_grayscale
+
+    cuda = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    images = keyframes(args.keyframes)[0]
+    n = len(images)
+    launches = {}
+    # the CPU rehearsal cuts the ViT's width and depth; the card runs ViT-B/14
+    vit = ViTConfig.dinov2_vitb14() if cuda else ViTConfig.tiny_test()
+    encoders = (("cricavpr", 10752, dinov2_shapes(vit),
+                 lambda d: CricaVPR(checkpoint=None, vit_cfg=vit, device=d)),
+                ("mixvpr", 4096, resnet50_shapes(), lambda d: MixVPR(device=d)))
+    for name, width, shapes, build in encoders:
+        t0 = time.perf_counter()
+        sd = draw_state_dict(shapes, dev)
+        vpr = build(dev)
+        vpr.load_torch_state_dict(sd)
+        reset_launch_counts()
+        sync(dev)
+        t1 = time.perf_counter()
+        desc = torch.cat([vpr.encode_batch_device(images[s : s + ENCODE_BATCH])
+                          for s in range(0, n, ENCODE_BATCH)])
+        sync(dev)
+        wall = time.perf_counter() - t1
+        counts = launch_counts()
+        check_descriptors(desc, width, f"12c {name}")
+        want = {"tri_count": 0, "flash_attention": 0,
+                "dense_attention": 12 * -(-n // ENCODE_BATCH) if name == "cricavpr" else 0}
+        if cuda and counts != want:
+            raise AssertionError(f"12c {name}: kernel launches {counts}, expected {want}")
+        launches[name] = counts["dense_attention"]
+        fields = {}
+        if cuda:
+            ref = build(cpu)
+            ref.load_torch_state_dict({k: v.cpu() for k, v in sd.items()})
+            cos = (desc[:IMPORT_CHECK_FRAMES].cpu()
+                   * ref.encode_batch_device(images[:IMPORT_CHECK_FRAMES])).sum(1)
+            fields = {"cpu_frames": IMPORT_CHECK_FRAMES, "cosine_min": float(cos.min())}
+            if float(cos.min()) < IMPORT_COSINE:
+                raise AssertionError(f"12c {name}: card vs cpu cosine {cos.tolist()}")
+            del ref
+        log(f"12c {name}", t0, tensors=len(sd), parameters=sum(v.numel() for v in sd.values()),
+            keyframes=n, encode_s=f"{wall:.4f}", keyframes_per_s=f"{n / wall:.1f}",
+            launches=json.dumps(counts, separators=(",", ":")), **fields)
+        del vpr
+    # LightGlue and SuperPoint, float32, then the npz round trip
+    t0 = time.perf_counter()
+    mcfg = MatcherConfig.lightglue(dtype=torch.float32)
+    sp_sd = draw_state_dict(superpoint_shapes(), dev)
+    m_sd = draw_state_dict(lightglue_shapes(mcfg), dev, seed=1)
+
+    def build_lg(d):
+        lg = LightGlue(sp_cfg=SuperPointConfig(max_keypoints=512, dtype=torch.float32),
+                       matcher_cfg=mcfg, device=d)
+        lg.load_torch_state_dict({k: v.to(d) for k, v in m_sd.items()},
+                                 {k: v.to(d) for k, v in sp_sd.items()})
+        return lg
+
+    lgs = {d.type: build_lg(d) for d in {dev, cpu}}
+    gray = to_grayscale(torch.as_tensor(images[:2 * IMPORT_CHECK_FRAMES]))
+    kp = [lgs["cpu"].sp.detect(gray[:IMPORT_CHECK_FRAMES]),
+          lgs["cpu"].sp.detect(gray[IMPORT_CHECK_FRAMES:])]
+    hw = tuple(gray.shape[1:3])
+    scores = {}
+    for k, lg in lgs.items():
+        k0, k1 = (x.map(lambda t: t.to(lg.device)) for x in kp)
+        scores[k] = lg.net(k0.descriptors, k0.coords, k0.mask, k1.descriptors, k1.coords,
+                           k1.mask, hw).cpu()
+    err = float((scores[dev.type] - scores["cpu"]).abs().max())
+    if err > LIGHTGLUE_SCORE_ATOL:
+        raise AssertionError(f"12c lightglue: scores card vs cpu {err} > {LIGHTGLUE_SCORE_ATOL}")
+    lg = lgs[dev.type]
+    with tempfile.TemporaryDirectory(prefix="mlis_phase12_") as tmp:
+        path = os.path.join(tmp, "lightglue_official.npz")
+        lg.save_weights(path)
+        back = LightGlue.from_checkpoint(path, sp_cfg=lg.sp.cfg, dtype=torch.float32, device=dev)
+        size = os.path.getsize(path)
+    for net in ("net", "sp"):
+        a, b = (getattr(x, net).state_dict() if net == "net" else x.sp.net.state_dict()
+                for x in (lg, back))
+        if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+            raise AssertionError(f"12c lightglue: the {net} weights changed in the npz round trip")
+    # the same keypoints through both: score matrices identical
+    k0, k1 = (x.map(lambda t: t.to(dev)) for x in kp)
+    s1, s2 = (x.net(k0.descriptors, k0.coords, k0.mask, k1.descriptors, k1.coords, k1.mask, hw)
+              for x in (lg, back))
+    if not torch.equal(s1, s2):
+        raise AssertionError("12c lightglue: scores differ after the npz round trip")
+    mutual = extract_matches(s1, k0.mask, k1.mask, 0.0).valid.sum(1)
+    log("12c lightglue", t0, matcher_tensors=len(m_sd), superpoint_tensors=len(sp_sd),
+        pairs=IMPORT_CHECK_FRAMES, score_max_abs_err=err, round_trip_npz_bytes=size,
+        round_trip_mutual_matches=",".join(str(int(x)) for x in mutual))
+    return launches
+
+
+def phase_model_families(dev, args) -> dict:
+    """Phase 12: the official LoFTR gate, YOLOv8n and the weight import;
+    returns the dense kernel's launches (12c's CricaVPR encode)."""
+    t0 = time.perf_counter()
+    phase_official_loftr(dev, args)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    phase_yolo(dev, args)
+    launches = phase_weight_import(dev, args)
+    log("12 model families", t0, dense_launches=launches["cricavpr"])
+    return {"dense_attention": launches["cricavpr"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -2400,6 +2904,8 @@ def main() -> int:
         floor_path = phase_floor_labelling(dev, args)
     # the solvers differentiate: outside inference mode
     backend = phase_backend(dev, args)
+    with torch.inference_mode():
+        families = phase_model_families(dev, args)
     signal.alarm(0)
     print(f"[total] {time.perf_counter() - t_all:.3f}s", flush=True)
     if dev.type != "cuda":
@@ -2438,9 +2944,11 @@ def main() -> int:
         "route": "cuda",
         "source": "mlis_tpu_torch/csrc/attention.cu",
         "replaces": "mlis_tpu/ops/attention.py:25, mlis_tpu/ops/attention.py:38",
-        "launches": path_a["dense_attention"] + quality["dense_attention"],
+        "launches": (path_a["dense_attention"] + quality["dense_attention"]
+                     + families["dense_attention"]),
         "launches_by_path": {"A": path_a["dense_attention"],
-                             "quality2_cricavpr_rows": quality["dense_attention"]},
+                             "quality2_cricavpr_rows": quality["dense_attention"],
+                             "12": families["dense_attention"]},
         **attn["dense_attention"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

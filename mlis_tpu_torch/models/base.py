@@ -33,6 +33,21 @@ class TorchEncoderVPR(BasePlaceRecognition):
         self.module.load_state_dict(state_dict, strict=True)
         self.module.to(self.device)
 
+    def load_torch_state_dict(self, state_dict) -> None:
+        """Replace the backbone's weights with a converted official torch
+        checkpoint (the encoders with a converter override this)."""
+        raise NotImplementedError(f"{type(self).__name__} has no converter")
+
+    def _load_converted(self, module: torch.nn.Module, convert, state_dict) -> None:
+        """``module``'s weights from an official state dict through one of
+        ``models/convert.py``'s converters, the template taken from
+        ``module`` itself."""
+        from mlis_tpu_torch.weights import from_jax_params, to_jax_params
+
+        tree = convert(state_dict, to_jax_params(module.state_dict()))
+        module.load_state_dict(from_jax_params(tree, scan_prefixes=()), strict=True)
+        module.to(self.device)
+
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         return fit_descriptor_dim(self.module(x), self.descriptor_dim)
 

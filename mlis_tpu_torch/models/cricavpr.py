@@ -126,3 +126,10 @@ class CricaVPR(TorchEncoderVPR):
         ]
         rescored.sort(key=lambda m: -m.similarity)
         return rescored[: top_k or len(rescored)]
+
+    def load_torch_state_dict(self, state_dict) -> None:
+        """The ViT from a facebookresearch DINOv2 state dict
+        (``models/convert.convert_dinov2_torch``)."""
+        from mlis_tpu_torch.models.convert import convert_dinov2_torch
+
+        self._load_converted(self.module, convert_dinov2_torch, state_dict)

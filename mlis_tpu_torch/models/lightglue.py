@@ -279,6 +279,40 @@ class LightGlue(BaseFeatureMatcher):
         self.net.load_state_dict(groups["matcher"], strict=True)
         self.net.to(self.device)
 
+    def load_torch_state_dict(self, matcher_sd=None, superpoint_sd=None,
+                              image_hw=(540, 720)) -> None:
+        """Load official checkpoints: a cvg/LightGlue matcher state dict
+        (``transformers.{i}.self_attn.Wqkv`` split into q / k / v, the cross
+        block's shared ``to_qk`` into both q and k, the last layer's
+        assignment head) and / or a magicleap SuperPoint one (``conv1a`` ...
+        ``convDb``), torch tensors or numpy arrays. ``image_hw`` is the JAX
+        package's init shape, which torch modules do not need."""
+        from mlis_tpu_torch.models.convert import (
+            convert_lightglue_torch,
+            convert_superpoint_torch,
+        )
+        from mlis_tpu_torch.weights import from_jax_params, to_jax_params
+
+        if superpoint_sd is not None:
+            tree = convert_superpoint_torch(superpoint_sd, to_jax_params(self.sp.net.state_dict()))
+            self.sp.load_state(from_jax_params(tree))
+        if matcher_sd is not None:
+            template = to_jax_params(self.net.state_dict(), scan_prefixes=("blocks",))
+            tree = convert_lightglue_torch(matcher_sd, template)
+            self.net.load_state_dict(from_jax_params(tree), strict=True)
+            self.net.to(self.device)
+
+    def save_weights(self, path: str) -> None:
+        """Write the matcher and its SuperPoint front end into one npz as the
+        JAX package's ``save_weights`` does: the ``matcher:`` tree (``blocks``
+        restacked along the depth axis) and the ``superpoint:`` tree, flax
+        layout, float16."""
+        from mlis_tpu_torch.weights import save_params_npz, to_jax_params
+
+        save_params_npz(path,
+                        matcher=to_jax_params(self.net.state_dict(), scan_prefixes=("blocks",)),
+                        superpoint=to_jax_params(self.sp.net.state_dict()))
+
     @torch.no_grad()
     def init_random_(self, seed: int = 0) -> "LightGlue":
         """SuperPoint and the matcher drawn with flax's initialisers from

@@ -106,3 +106,9 @@ class MixVPR(TorchEncoderVPR):
             self.load_state(load_npz(checkpoint)["vpr"])
         self.module.to(self.device).eval()
 
+    def load_torch_state_dict(self, state_dict) -> None:
+        """The ResNet backbone from a torchvision ResNet-50 state dict
+        (``models/convert.convert_resnet_torch``)."""
+        from mlis_tpu_torch.models.convert import convert_resnet_torch
+
+        self._load_converted(self.module.backbone, convert_resnet_torch, state_dict)

@@ -115,3 +115,10 @@ class SALAD(TorchEncoderVPR):
         """uint8 (B, H, W[, C]) -> device-resident float32 (B, D)."""
         x = preprocess_imagenet(torch.as_tensor(images, device=self.device), self.input_size)
         return fit_descriptor_dim(self.module(x), self.descriptor_dim)
+
+    def load_torch_state_dict(self, state_dict) -> None:
+        """The ViT backbone from a facebookresearch DINOv2 state dict
+        (``models/convert.convert_dinov2_torch``)."""
+        from mlis_tpu_torch.models.convert import convert_dinov2_torch
+
+        self._load_converted(self.module.backbone, convert_dinov2_torch, state_dict)

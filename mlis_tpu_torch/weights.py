@@ -22,12 +22,17 @@ tree onto the port's module names:
 * AnyLoc's ``vlad/centers`` group is the (K, D) vocabulary, kept as is.
 
 :func:`carry_jax_vpr` puts a flax-initialised encoder's parameters (numpy
-leaves) into the port's encoder of the same architecture, and
-:func:`carry_jax_matcher` a matcher's (LightGlue, SuperGlue, LoFTR).
-LoFTR's ``loftr:`` tree names its layers as the port's modules do
-(``backbone/c1a``, ``self0_0/q``, ``cross3_1/ffn2``...), so it maps with the
+leaves) into the port's encoder of the same architecture,
+:func:`carry_jax_matcher` a matcher's (LightGlue, SuperGlue, LoFTR in
+either architecture) and :func:`carry_jax_yolo` a YOLOv8's. LoFTR's
+``loftr:`` tree names its layers as the port's modules do (``backbone/c1a``,
+``self0_0/q``, ``cross3_1/ffn2``...; in the official architecture
+``coarse/coarse_self0/q_proj``, ``fine/down_proj``...), so it maps with the
 rules above and no scan split; :func:`to_jax_params` and
-:func:`save_params_npz` write a state dict back in that layout.
+:func:`save_params_npz` write a state dict back in that layout, restacking
+a scanned subtree. ``to_jax_params(module.state_dict())`` is also the
+template that ``models/convert.py``'s converters fill from an official
+torch checkpoint.
 """
 
 from __future__ import annotations
@@ -154,8 +159,8 @@ def carry_jax_matcher(matcher, params: Any, superpoint: Any = None):
     """Load a flax parameter tree (numpy leaves) into a port matcher of the
     same architecture: LightGlue's or SuperGlue's ``matcher`` tree (the
     scanned ``blocks`` split per layer, SuperGlue's ``dustbin`` kept) with,
-    when given, the ``superpoint`` tree, or LoFTR's ``loftr`` tree. Returns
-    ``matcher``."""
+    when given, the ``superpoint`` tree, or LoFTR's ``loftr`` tree, of the
+    in-env or the official architecture. Returns ``matcher``."""
     if hasattr(matcher, "sp"):
         if superpoint is not None:
             matcher.sp.load_state(from_jax_params(superpoint))
@@ -166,12 +171,25 @@ def carry_jax_matcher(matcher, params: Any, superpoint: Any = None):
     return matcher
 
 
-def to_jax_params(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """A torch state dict with no scanned subtree -> flax tree (numpy
-    leaves): the inverse of :func:`from_jax_params` for Dense, Conv and
-    LayerNorm leaves."""
+def carry_jax_yolo(detector, params: Any):
+    """Load the JAX package's YOLOv8 parameter tree (numpy leaves) into a
+    port ``YOLODetector`` of the same configuration. Returns ``detector``."""
+    detector.net.load_state_dict(from_jax_params(params, scan_prefixes=()), strict=True)
+    detector.net.to(detector.device)
+    return detector
+
+
+def to_jax_params(state: Dict[str, torch.Tensor],
+                  scan_prefixes: Iterable[str] = ()) -> Dict[str, Any]:
+    """A torch state dict -> flax tree (numpy leaves): the inverse of
+    :func:`from_jax_params` for Dense, Conv, LayerNorm and batch-norm
+    leaves. Subtrees named in ``scan_prefixes`` (LightGlue's ``blocks``)
+    are restacked along a leading depth axis, ``blocks.{i}.x`` -> layer
+    ``i`` of ``blocks/x``."""
     inv = {v: k for k, v in _RENAME.items()}
+    scan = tuple(scan_prefixes)
     flat: Dict[str, np.ndarray] = {}
+    layers: Dict[str, Dict[int, np.ndarray]] = {}
     for key, t in state.items():
         parts = key.split(".")
         v = t.detach().cpu().numpy()
@@ -182,7 +200,13 @@ def to_jax_params(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             leaf, v = "kernel", v.transpose(2, 3, 1, 0)
         else:
             leaf = inv.get(leaf, leaf)
-        flat["/".join([*parts[:-1], leaf])] = np.ascontiguousarray(v)
+        if parts[0] in scan:
+            name = "/".join([parts[0], *parts[2:-1], leaf])
+            layers.setdefault(name, {})[int(parts[1])] = v
+        else:
+            flat["/".join([*parts[:-1], leaf])] = np.ascontiguousarray(v)
+    for name, by_layer in layers.items():
+        flat[name] = np.stack([by_layer[i] for i in range(len(by_layer))])
     return unflatten_params(flat)
 
 

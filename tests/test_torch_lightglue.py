@@ -215,3 +215,88 @@ def test_fullres_checkpoint_at_540x720():
     # these near-duplicate views give sharper softmaxes (1.1e-4 relative on
     # one of 9216 scores measured)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+def _official_pair():
+    """The JAX and the port LightGlue at tiny widths in float32, each with
+    the same official cvg/LightGlue and magicleap SuperPoint state dicts
+    (drawn from ``np.random.default_rng(5)``, Kaiming-scaled) loaded through
+    ``load_torch_state_dict``; the JAX templates come from ``eval_shape``."""
+    from test_torch_convert import _shape_template, fake_lightglue_sd, fake_superpoint_sd
+
+    rng = np.random.default_rng(5)
+    sp_sd = fake_superpoint_sd(rng, (8, 8, 16, 16), 32)
+    m_sd = fake_lightglue_sd(rng, 32, 32, 2, 2)
+    ref = jlg.LightGlue(sp_cfg=JaxSPC.tiny_test(max_keypoints=64, dtype=jnp.float32),
+                       matcher_cfg=jlg.MatcherConfig.tiny_test(dtype=jnp.float32,
+                                                                 match_threshold=1e-5))
+    ref.sp.params = {"params": _shape_template(ref.sp.net, jnp.zeros((1, *HW, 1)))}
+    d, c, m = jnp.zeros((1, 64, 32)), jnp.zeros((1, 64, 2)), jnp.ones((1, 64), bool)
+    ref.params = {"params": _shape_template(ref.net, d, c, m, d, c, m, HW)}
+    port = tlg.LightGlue(sp_cfg=SuperPointConfig.tiny_test(max_keypoints=64, dtype=torch.float32),
+                         matcher_cfg=tlg.MatcherConfig.tiny_test(dtype=torch.float32,
+                                                                  match_threshold=1e-5),
+                         device="cpu")
+    return ref, port, m_sd, sp_sd
+
+
+def test_load_torch_state_dict_matches_jax():
+    """Official matcher and SuperPoint dicts into both packages (a match
+    threshold of 1e-5, at which random weights give matches): the same
+    keypoints, match indices and validity, scores within 2e-5 (float32
+    attention summed in another order); the cross block's shared to_qk is
+    both q and k, Wqkv's thirds are q, k and v."""
+    ref, port, m_sd, sp_sd = _official_pair()
+    ref.load_torch_state_dict(m_sd, sp_sd, image_hw=HW)
+    port.load_torch_state_dict(m_sd, sp_sd)
+    blk = port.net.blocks[1]
+    assert torch.equal(blk["cross"].q.weight, blk["cross"].k.weight)
+    assert torch.equal(blk["cross"].q.weight,
+                       torch.from_numpy(m_sd["transformers.1.cross_attn.to_qk.weight"]))
+    assert torch.equal(blk["self"].v.weight,
+                       torch.from_numpy(m_sd["transformers.1.self_attn.Wqkv.weight"][64:]))
+    assert torch.equal(port.sp.net.conv2_1.weight, torch.from_numpy(sp_sd["conv2b.weight"]))
+    imgs = _keypoints(np.random.default_rng(6))
+    j0, j1, jm = ref.match_batch(jnp.asarray(imgs[:2]), jnp.asarray(imgs[2:]))
+    t0, t1, tm = port.match_batch(torch.from_numpy(imgs[:2]), torch.from_numpy(imgs[2:]))
+    for a, b in ((t0, j0), (t1, j1)):
+        np.testing.assert_array_equal(a.coords.numpy(), np.asarray(b.coords))
+        np.testing.assert_array_equal(a.mask.numpy(), np.asarray(b.mask))
+    np.testing.assert_array_equal(tm.idx0.numpy(), np.asarray(jm.idx0))
+    np.testing.assert_array_equal(tm.valid.numpy(), np.asarray(jm.valid))
+    np.testing.assert_allclose(tm.scores.numpy(), np.asarray(jm.scores), atol=2e-5)
+    assert tm.valid.sum() > 0
+
+
+def test_save_weights_round_trip_across_packages(tmp_path):
+    """Port save_weights -> JAX load_weights and JAX save_weights -> port
+    load_weights: the matcher (blocks restacked along the depth axis) and
+    SuperPoint trees equal, float16 as stored; ``from_checkpoint`` reads
+    the structure back from the port's file."""
+    from mlis_tpu.models.weights import load_params_npz as jax_load_params
+    from mlis_tpu_torch.weights import flatten_params, load_params_npz, to_jax_params
+
+    ref, port, m_sd, sp_sd = _official_pair()
+    port.load_torch_state_dict(m_sd, sp_sd)
+    mine = str(tmp_path / "port.npz")
+    port.save_weights(mine)
+    saved = load_params_npz(mine)
+    assert saved["matcher"]["blocks"]["self"]["q"]["kernel"].shape == (2, 32, 32)
+    ref.load_weights(mine, image_hw=HW)
+    for name, tree in (("matcher", ref.params["params"]), ("superpoint", ref.sp.params["params"])):
+        got, want = flatten_params(jax.device_get(tree)), flatten_params(saved[name])
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            assert np.array_equal(np.asarray(got[k]), v), (name, k)
+    theirs = str(tmp_path / "jax.npz")
+    ref.save_weights(theirs)
+    back = tlg.LightGlue.from_checkpoint(theirs, sp_cfg=SuperPointConfig.tiny_test(
+        max_keypoints=64, dtype=torch.float32), dtype=torch.float32, device="cpu")
+    want = jax_load_params(theirs)
+    for name, state in (("matcher", to_jax_params(back.net.state_dict(), scan_prefixes=("blocks",))),
+                        ("superpoint", to_jax_params(back.sp.net.state_dict()))):
+        w = flatten_params(want[name])
+        assert sorted(flatten_params(state)) == sorted(w)
+        for k, v in flatten_params(state).items():
+            assert np.array_equal(v, np.asarray(w[k])), (name, k)
+    assert back.cfg.depth == 2 and back.cfg.dim == 32

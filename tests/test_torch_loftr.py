@@ -15,6 +15,9 @@ normalisations and ``border_rm``, the dual-softmax scores within 2e-6
 triangle filter's weights in float32 from sample coordinates up to 270,
 whose float32 ulp is 2^-15.
 
+``LoFTRConfig(official=True)`` builds the official architecture, held
+in tests/test_torch_loftr_official.py.
+
 The shipped ``loftr_parallax.npz`` in both packages on pairs of the JAX
 package's seed-0 v2 scene (135x180, resized to 128x176): in float32 the
 valid masks and the matched coarse cells are equal, the refined points
@@ -135,8 +138,9 @@ def test_checkpoint_round_trip_and_official_refused(tmp_path):
     assert len(flat_ref) == len(flat_back) == 204
     for path, v in flat_ref:
         np.testing.assert_array_equal(flat_back[path], v)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tl.LoFTR(tl.LoFTRConfig(official=True), device="cpu")
+    # official=True builds the kornia architecture (tests/test_torch_loftr_official.py)
+    official = tl.LoFTR(tl.LoFTRConfig.official_tiny(), device="cpu")
+    assert isinstance(official.net, tl.OfficialLoFTRMatcher)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -199,7 +199,8 @@ def test_port_runs_without_jax_or_mlis_tpu():
         for name in names:
             importlib.import_module(name)
         assert {"mlis_tpu_torch.opt.pose_graph", "mlis_tpu_torch.eval.report",
-                "mlis_tpu_torch.cli", "mlis_tpu_torch.ops.geometry"} <= set(names), names
+                "mlis_tpu_torch.cli", "mlis_tpu_torch.ops.geometry",
+                "mlis_tpu_torch.models.convert", "mlis_tpu_torch.models.yolo"} <= set(names), names
         from mlis_tpu_torch.ops.pairwise import candidate_counts, candidate_counts_host
         from mlis_tpu_torch.gating.place_recognition import _build_vpr, process_image_sequence
         rng = np.random.default_rng(0)
@@ -251,6 +252,12 @@ def test_port_runs_without_jax_or_mlis_tpu():
         from mlis_tpu_torch.opt.demo import run_pgo_demo
         pgo = run_pgo_demo(laps=2, num_iters=2, cg_iters=8, device="cpu")
         assert pgo["gate_correct"] and np.isfinite(pgo["gnc_ate_rmse"])
+        official = LoFTR(LoFTRConfig.official_tiny(match_threshold=0.0), device="cpu")
+        assert official.match_batch(torch.rand(2, 64, 64, 1), torch.rand(2, 64, 64, 1)).valid.any()
+        from mlis_tpu_torch.models.yolo import DynamicObjectFilter, YOLOConfig, YOLODetector
+        filt = DynamicObjectFilter(YOLODetector(YOLOConfig.tiny_test(), input_size=(64, 96),
+                                                device="cpu"))
+        assert filt.filter_batch(scene.images[:2, :, :, None].repeat(3, -1))[1].shape == (2, 64, 96)
         assert not any(m == "jax" or m.startswith(("jax.", "mlis_tpu.")) or m == "mlis_tpu"
                        for m, v in sys.modules.items() if v is not None)
         print("ok")
