@@ -153,6 +153,26 @@ Phases, one line each as they end:
    cvg/LightGlue + magicleap SuperPoint into LightGlue (float32 scores on
    the same keypoints within 1e-4 of the CPU's, then save_weights /
    from_checkpoint with equal weights and identical scores).
+13. the parallel package and the trainer, on a one-rank mesh (``nccl`` on
+   the card; the card's machine holds one H100, so the collectives are
+   copies and the step measures the framework's cost): (a) bench.py's
+   ``multichip`` mode on phase 3's 128 keyframes, MixVPR and LightGlue
+   (1024 keypoints, top 512 matched): one exact ``process`` for the
+   budget, the best of three budgeted monolithic runs, then
+   ``sharded_full_gate_step(exact=False)`` at the same slot count and the
+   best of three runs of its program; the directed stats equal a host
+   recount, every valid slot holds an accepted same-floor pair, matches
+   and inliers equal the single-card fused program on the same pairs and
+   draws; (b) the step with path A's CricaVPR as its encoder: one dense
+   launch per block per encode call, no flash launch, descriptors within
+   cosine 0.999 of the batched encode; (c) ``query_sharded_topk`` and
+   ``db_sharded_topk`` on 19,163 x 4,096 unit descriptors from
+   torch.Generator(0), 0.05 s apart, equal to ``cosine_topk``; (d) five
+   ``VPRTrainer`` steps of a float32 ViT-B/14 (plain attention) on a fixed
+   batch of 32 at 224x224 (8 places x 4 views), the initial loss on 8
+   images within 1e-3 of the CPU's, steps/s and peak memory, then
+   ``run_demo()`` held to its contract; (e) ``estimate_gate_scaling`` at 4
+   and 8 cards calibrated by (a)'s single-card rate.
 Phases 5, 6, 8, 9 and 12a run like phase 3 (warm-up, three timed runs, one
 profiled run), with every launch counter set to 0 before each run.
 
@@ -2868,6 +2888,309 @@ def phase_model_families(dev, args) -> dict:
     return {"dense_attention": launches["cricavpr"]}
 
 
+# -- phase 13: the parallel package and the VPR trainer ----------------------------
+
+TOPK_TIMES_S = 0.05  # keyframe spacing of phase 13c's descriptors
+TRAIN_BATCH = (8, 4)  # places x views of phase 13d's fixed batch
+TRAIN_HW = 224
+TRAIN_STEPS = 5
+TRAIN_CPU_IMAGES = 8
+TRAIN_LOSS_RTOL = 1e-3  # card (TF32 off) vs CPU, the initial weights' loss
+CRICA_COSINE = 0.999  # sharded encode vs the non-sharded one
+
+
+def budget_slots(s: int) -> int:
+    """The JAX package's FullGatePipeline._budget_slots: a survivor budget
+    rounded up to {5, 6, 7, 8} x 2^k slots (at least 16), the slot count
+    bench.py's multichip mode gives the sharded step."""
+    s = max(int(s), 1)
+    if s <= 16:
+        return 16
+    p = 1 << (s - 1).bit_length()
+    q = p // 8
+    return -(-s // q) * q
+
+
+def host_recount(desc: torch.Tensor, timestamps, floors, threshold: float = 0.3, k: int = 10):
+    """The directed retrieval and floor gate of the step, on the host:
+    (total, rejected, accepted) and the set of accepted (q, m) pairs."""
+    from mlis_tpu_torch.ops.knn import cosine_topk
+
+    d = desc.float().cpu()
+    t = torch.as_tensor(np.asarray(timestamps, np.float32))
+    scores, idx = (x.numpy() for x in cosine_topk(d, d, t, t, k=min(k, len(d)),
+                                                   min_time_gap=10.0))
+    valid = np.isfinite(scores) & (scores >= threshold)
+    accept = valid & (floors[:, None] == floors[idx])
+    pairs = {(int(q), int(idx[q, j])) for q, j in zip(*np.nonzero(accept))}
+    return (int(valid.sum()), int((valid & ~accept).sum()), int(accept.sum())), pairs
+
+
+def check_sharded_step(what: str, stats, verdicts, recount, pairs, floors) -> None:
+    if (stats["total"], stats["rejected"], stats["accepted"]) != recount:
+        raise AssertionError(f"{what}: directed stats {stats} != the host recount {recount}")
+    ok = verdicts["slot_valid"]
+    slots = set(zip(verdicts["qi"][ok].tolist(), verdicts["mi"][ok].tolist()))
+    if not ok.any() or not slots <= pairs or \
+            (floors[verdicts["qi"][ok]] != floors[verdicts["mi"][ok]]).any():
+        raise AssertionError(f"{what}: a valid slot holds no accepted same-floor pair")
+
+
+def phase_sharded_gate(dev, args, name_power: str) -> dict:
+    """13a, 13b, 13c: bench.py's multichip mode on the port over a one-rank
+    mesh (nccl on the card), CricaVPR as its encoder, the sharded top-k at
+    the trajectory's size."""
+    from mlis_tpu_torch.gating.place_recognition import SemanticPlaceRecognition
+    from mlis_tpu_torch.models.superpoint import Keypoints
+    from mlis_tpu_torch.ops.image import to_grayscale
+    from mlis_tpu_torch.ops.knn import cosine_topk
+    from mlis_tpu_torch.parallel.distributed_knn import db_sharded_topk, query_sharded_topk
+    from mlis_tpu_torch.parallel.mesh import make_mesh
+    from mlis_tpu_torch.parallel.sharded_gate import (
+        make_sharded_gate_program,
+        sharded_full_gate_step,
+    )
+
+    t0 = time.perf_counter()
+    images, timestamps, floors, K = keyframes(args.keyframes)
+    n, (H, W) = len(images), images.shape[1:3]
+    pipe = build_pipeline(dev, torch.bfloat16)
+    matcher = pipe.verifier.matcher
+    mesh = make_mesh(1, 1, device_type=dev.type)
+    imgs = torch.as_tensor(images, device=dev)
+    t_arr = torch.as_tensor(timestamps.astype(np.float32), device=dev)
+    fl_arr = torch.as_tensor(floors.astype(np.int32), device=dev)
+    log("13a setup", t0, keyframes=n, mesh="1x1", backend=torch.distributed.get_backend(),
+        weights="vpr_mixvpr.npz+lightglue_homog_sp.npz")
+
+    # the single-card pipeline: one exact run gives the budget, then the
+    # best of three compute-only runs with it; both sides of the comparison
+    # read the keyframes already on the card, as bench.py's images_dev
+    res = pipe.process(imgs, timestamps, floors, K, encode_batch_size=128)
+    budget = res.verified
+    best_pipe = float("inf")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(TIMED_REPS):
+        pipe.spr.vpr.descriptors = []
+        t1 = time.perf_counter()
+        r = pipe.process(imgs, timestamps, floors, K, encode_batch_size=128,
+                         survivor_budget=budget, monolithic=True)
+        sync(dev)
+        best_pipe = min(best_pipe, time.perf_counter() - t1)
+    slots = budget_slots(budget)
+
+    # the sharded step at the same slot count: once through the step, then
+    # the best of three of its program; RANSAC draws fed to both the step
+    # and the single-card fused check
+    enc = pipe.spr.vpr.encode_batch_device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    uniforms = torch.rand((slots, 512, 8), generator=gen, device=dev)
+    reset_launch_counts()
+    verdicts, stats = sharded_full_gate_step(
+        mesh, matcher, enc, images, timestamps, floors, K, top_k=10, threshold=0.3,
+        per_device_budget=slots, exact=False, match_top_k=512, uniforms=uniforms)
+    prog = make_sharded_gate_program(mesh, matcher, enc, n, (H, W), K, top_k=10, threshold=0.3,
+                                     min_time_gap=10.0, budget=slots, match_top_k=512)
+    best_shard = float("inf")
+    for _ in range(TIMED_REPS + 1):  # the first is the warm-up
+        t1 = time.perf_counter()
+        float(prog(imgs, t_arr, fl_arr, t_arr, fl_arr, uniforms=uniforms)[5].sum())
+        best_shard = min(best_shard, time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    counts = launch_counts()
+    recount, pairs = host_recount(enc(imgs), timestamps, floors)
+    check_sharded_step("13a", stats, verdicts, recount, pairs, floors)
+    # the single-card fused program on the same pair list and draws
+    h8, w8 = (H // 8) * 8, (W // 8) * 8
+    kp = matcher.sp.detect(to_grayscale(imgs, size=(h8, w8)))
+    kp = Keypoints(kp.coords * torch.tensor([W / w8, H / h8], device=dev),
+                   *(x for x in kp[1:])).map(lambda x: x[:, :512])
+    fused = matcher.make_fused_match_verify((H, W), K, 3.0)
+    out = fused(kp, torch.as_tensor(verdicts["qi"], device=dev).long(),
+                torch.as_tensor(verdicts["mi"], device=dev).long(), uniforms=uniforms)
+    ok = verdicts["slot_valid"]
+    for key, got in (("n_matches", out[2]), ("n_inliers", out[3])):
+        if not np.array_equal(verdicts[key][ok], got.cpu().numpy()[ok]):
+            raise AssertionError(f"13a: sharded {key} differ from the single-card fused program")
+    if any(counts.values()):
+        raise AssertionError(f"13a: the MixVPR step launched a kernel: {counts}")
+    overhead = best_shard / best_pipe - 1.0
+    log("13a multichip", t0, gpu=json.dumps(name_power), pipeline_s=f"{best_pipe:.4f}",
+        sharded_1dev_s=f"{best_shard:.4f}", overhead_pct=f"{100 * overhead:.2f}",
+        verify_slots=slots, survivors=budget, stats=json.dumps(stats, separators=(",", ":")),
+        valid_slots=int(ok.sum()), geometrically_valid=int((verdicts["n_inliers"][ok] >= 20).sum()),
+        peak_mem_bytes=peak)
+    del pipe, kp, out
+
+    # 13b: the same step with path A's CricaVPR (vpr_crica.npz, ViT-B/14 at
+    # 322x322, bf16) as the encoder: one dense-kernel launch per block per
+    # encode call, descriptors as the non-sharded encode gives them
+    t0 = time.perf_counter()
+    crica = SemanticPlaceRecognition("cricavpr", similarity_threshold=0.3, min_time_gap=10.0,
+                                     device=dev).vpr
+    seen = []
+
+    def crica_enc(x):
+        crica.patch_cache = []
+        d = crica.encode_batch_device(x)
+        seen.append(d)
+        return d
+
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    verdicts, stats = sharded_full_gate_step(
+        mesh, matcher, crica_enc, images, timestamps, floors, K, top_k=10, threshold=0.3,
+        per_device_budget=slots, exact=False, match_top_k=512)
+    sync(dev)
+    step_s = time.perf_counter() - t1
+    counts = launch_counts()
+    want = {"tri_count": 0, "flash_attention": 0,
+            "dense_attention": crica.module.cfg.depth * len(seen) if dev.type == "cuda" else 0}
+    if counts != want:
+        raise AssertionError(f"13b: kernel launches {counts}, expected {want}")
+    crica.patch_cache = []
+    plain = torch.cat([crica.encode_batch_device(imgs[s:s + ENCODE_BATCH])
+                       for s in range(0, n, ENCODE_BATCH)])
+    cos = float(torch.nn.functional.cosine_similarity(seen[0].float(), plain.float()).min())
+    if cos < CRICA_COSINE:
+        raise AssertionError(f"13b: sharded encode cosine {cos} < {CRICA_COSINE}")
+    recount, pairs = host_recount(seen[0], timestamps, floors)
+    check_sharded_step("13b", stats, verdicts, recount, pairs, floors)
+    crica.patch_cache = []
+    log("13b cricavpr step", t0, gpu=json.dumps(name_power), step_s=f"{step_s:.4f}",
+        encode_calls=len(seen), launches=json.dumps(counts, separators=(",", ":")),
+        min_cosine_vs_unsharded=f"{cos:.6f}", stats=json.dumps(stats, separators=(",", ":")))
+    dense = counts["dense_attention"]
+    del crica, seen, plain
+
+    # 13c: the sharded top-k at the trajectory's size (a CPU rehearsal
+    # cuts the keyframes)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    n_db = SWEEP_POSES if dev.type == "cuda" else 2048
+    desc = torch.nn.functional.normalize(
+        torch.randn((n_db, 4096), generator=g, device=dev), dim=1)
+    times = torch.arange(n_db, device=dev, dtype=torch.float32) * TOPK_TIMES_S
+    want = cosine_topk(desc, desc, times, times, k=10, min_time_gap=10.0)
+    fields = {}
+    for label, fn in (("query_sharded", query_sharded_topk), ("db_sharded", db_sharded_topk)):
+        got = fn(mesh, desc, desc, times, times, k=10, min_time_gap=10.0)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"13c: {label} top-k differs from cosine_topk")
+        run = lambda: fn(mesh, desc, desc, times, times, k=10, min_time_gap=10.0)  # noqa: E731
+        fields[f"{label}_ms"] = f"{events_ms(run, 3) if dev.type == 'cuda' else host_ms(dev, run, 1):.3f}"
+    single = lambda: cosine_topk(desc, desc, times, times, k=10, min_time_gap=10.0)  # noqa: E731
+    fields["cosine_topk_ms"] = f"{events_ms(single, 3) if dev.type == 'cuda' else host_ms(dev, single, 1):.3f}"
+    log("13c sharded top-k", t0, gpu=json.dumps(name_power), keyframes=n_db, dim=4096,
+        equal_to_cosine_topk=True, **fields)
+    del desc, want
+    return {"dense_attention": dense, "best_pipe_s": best_pipe, "slots": slots,
+            "dim": matcher.cfg.dim, "depth": matcher.cfg.depth}
+
+
+def train_batch(dev):
+    """Phase 13d's fixed batch: 8 places x 4 views at 224 x 224 from
+    torch.Generator(0), each view its place's image plus noise."""
+    places, views = TRAIN_BATCH
+    g = torch.Generator(device=dev).manual_seed(0)
+    base = torch.rand((places, TRAIN_HW, TRAIN_HW, 3), generator=g, device=dev)
+    noise = 0.1 * torch.randn((places, views, TRAIN_HW, TRAIN_HW, 3), generator=g, device=dev)
+    images = (base[:, None] + noise).clamp(0, 1).reshape(places * views, TRAIN_HW, TRAIN_HW, 3)
+    return images, torch.arange(places, device=dev).repeat_interleave(views)
+
+
+def phase_trainer(dev, args, name_power: str) -> None:
+    """13d: VPRTrainer at CricaVPR's ViT-B/14 width (float32, plain
+    attention) on the one-rank mesh, then run_demo at its defaults."""
+    import copy
+
+    from mlis_tpu_torch.models.vit import ViT, ViTConfig
+    from mlis_tpu_torch.train.trainer import GeMEncoder, VPRTrainer, nt_xent_loss
+    from mlis_tpu_torch.train.vpr_finetune_demo import run_demo
+
+    t0 = time.perf_counter()
+    cfg = ViTConfig(dim=768, depth=args.train_depth, num_heads=12, dtype=torch.float32)
+    enc = GeMEncoder(ViT(cfg, use_kernel=False).init_random_(torch.Generator().manual_seed(0)))
+    images, ids = train_batch(dev)
+    # the initial weights' loss on the first images, card (TF32 off) vs CPU
+    first = slice(0, TRAIN_CPU_IMAGES)
+    with torch.no_grad():
+        cpu_loss = float(nt_xent_loss(enc(images[first].cpu()), ids[first].cpu()))
+        card = copy.deepcopy(enc).to(dev)
+        dev_loss = float(nt_xent_loss(card(images[first]), ids[first]))
+    del card
+    if not abs(dev_loss - cpu_loss) <= TRAIN_LOSS_RTOL * abs(cpu_loss):
+        raise AssertionError(f"13d: initial loss {dev_loss} on the card, {cpu_loss} on the CPU")
+    trainer = VPRTrainer(enc, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    host_images, host_ids = images.cpu().numpy(), ids.cpu().numpy()
+    losses = [trainer.train_batch(host_images, host_ids)]  # the first step warms up
+    sync(dev)
+    t1 = time.perf_counter()
+    losses += [trainer.train_batch(host_images, host_ids) for _ in range(TRAIN_STEPS - 1)]
+    sync(dev)
+    steps_per_s = (TRAIN_STEPS - 1) / (time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"13d: losses {losses} not finite and falling")
+    log("13d trainer", t0, gpu=json.dumps(name_power), vit=f"dim768_depth{cfg.depth}_h12_f32",
+        batch=f"{len(host_images)}x{TRAIN_HW}x{TRAIN_HW}", steps=TRAIN_STEPS,
+        losses=",".join(f"{x:.5f}" for x in losses), steps_per_s=f"{steps_per_s:.3f}",
+        initial_loss_card=f"{dev_loss:.6f}", initial_loss_cpu=f"{cpu_loss:.6f}",
+        peak_mem_bytes=peak)
+    del trainer, enc
+
+    t0 = time.perf_counter()
+    r = run_demo(device=dev)
+    demo_s = time.perf_counter() - t0
+    before, after = r["before"], r["after"]
+    if not (r["loss_last"] < 0.5 * r["loss_first"] and after["same_floor_recall"] >= 0.9
+            and after["same_floor_recall"] > before["same_floor_recall"]):
+        raise AssertionError(f"13d: run_demo's contract fails: {r}")
+    log("13d run_demo", t0, gpu=json.dumps(name_power), demo_s=f"{demo_s:.3f}",
+        steps=r["steps"], loss_first=f"{r['loss_first']:.5f}", loss_last=f"{r['loss_last']:.5f}",
+        recall_before=before["same_floor_recall"], recall_after=after["same_floor_recall"],
+        cross_floor_before=before["cross_floor_false_rate"],
+        cross_floor_after=after["cross_floor_false_rate"])
+
+
+def phase_scaling_model(args, gate: dict, name_power: str) -> None:
+    """13e: the comm model at 4 and 8 cards, its compute term calibrated by
+    13a's single-card rate (bench.py's multichip mode)."""
+    from mlis_tpu_torch.parallel.scaling import estimate_gate_scaling
+    from mlis_tpu_torch.utils.flops import full_gate_flops
+
+    t0 = time.perf_counter()
+    n, slots = args.keyframes, gate["slots"]
+    achieved = full_gate_flops(n, slots, (270, 360), 512, matcher_dim=gate["dim"],
+                               matcher_depth=gate["depth"]) / gate["best_pipe_s"]
+    ests = {d: estimate_gate_scaling(n_frames=n, n_dev=d, match_kpts=512, pairs_verified=slots,
+                                     achieved_flops_per_s=achieved).as_dict() for d in (4, 8)}
+    log("13e scaling model", t0, gpu=json.dumps(name_power),
+        achieved_tflops=f"{achieved / 1e12:.3f}",
+        est4=json.dumps(ests[4], separators=(",", ":")),
+        est8=json.dumps(ests[8], separators=(",", ":")))
+
+
+def phase_parallel(dev, args) -> dict:
+    """Phase 13: the sharded gate step, the sharded top-k, the trainer and
+    the comm model (see the module docstring)."""
+    import torch.distributed as dist
+
+    name_power = gpu_name_and_power() if dev.type == "cuda" else "cpu rehearsal"
+    try:
+        with torch.inference_mode():
+            gate = phase_sharded_gate(dev, args, name_power)
+        phase_trainer(dev, args, name_power)
+        phase_scaling_model(args, gate, name_power)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return {"dense_attention": gate["dense_attention"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -2877,6 +3200,8 @@ def main() -> int:
     ap.add_argument("--real-iters", type=int, nargs=2, default=[12, 1024],
                     metavar=("NUM_ITERS", "CG_ITERS"),
                     help="phase 11's run_pgo_real depth (default: the JAX package's 12 x 1024)")
+    ap.add_argument("--train-depth", type=int, default=12,
+                    help="phase 13d's ViT-B/14 depth (default: CricaVPR's 12)")
     ap.add_argument("--demo-iters", type=int, nargs=2, default=[20, 256],
                     metavar=("NUM_ITERS", "CG_ITERS"),
                     help="the pgo CLI's depth in a CPU rehearsal (the card runs its defaults)")
@@ -2906,6 +3231,8 @@ def main() -> int:
     backend = phase_backend(dev, args)
     with torch.inference_mode():
         families = phase_model_families(dev, args)
+    # the trainer differentiates: phase 13 enters inference mode itself
+    parallel = phase_parallel(dev, args)
     signal.alarm(0)
     print(f"[total] {time.perf_counter() - t_all:.3f}s", flush=True)
     if dev.type != "cuda":
@@ -2945,10 +3272,11 @@ def main() -> int:
         "source": "mlis_tpu_torch/csrc/attention.cu",
         "replaces": "mlis_tpu/ops/attention.py:25, mlis_tpu/ops/attention.py:38",
         "launches": (path_a["dense_attention"] + quality["dense_attention"]
-                     + families["dense_attention"]),
+                     + families["dense_attention"] + parallel["dense_attention"]),
         "launches_by_path": {"A": path_a["dense_attention"],
                              "quality2_cricavpr_rows": quality["dense_attention"],
-                             "12": families["dense_attention"]},
+                             "12": families["dense_attention"],
+                             "13": parallel["dense_attention"]},
         **attn["dense_attention"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -202,7 +202,7 @@ class FullGatePipeline:
 
     def process(
         self,
-        images: np.ndarray,  # (N, H, W, 3) colour or (N, H, W) mono8 keyframes
+        images,  # (N, H, W, 3) colour or (N, H, W) mono8 keyframes: array or tensor
         timestamps: np.ndarray,
         floor_labels: np.ndarray,
         K: np.ndarray,
@@ -223,14 +223,19 @@ class FullGatePipeline:
 
         ransac_uniforms: optional (n_survivors, num_hypotheses, 8) draws
         for RANSAC, one block per survivor in compaction order; without
-        them the draws come from ``generator`` on the device."""
+        them the draws come from ``generator`` on the device.
+
+        ``images`` may be a tensor already on the device (as bench.py passes
+        device arrays), which then is not copied."""
         n = len(images)
         res = FullGateResult()
         dev = self.device
         t_start = time.perf_counter()
 
         # 1) keypoints once per keyframe + VPR descriptors, device-resident
-        imgs = torch.as_tensor(np.ascontiguousarray(images), device=dev)
+        if not isinstance(images, torch.Tensor):
+            images = np.ascontiguousarray(images)
+        imgs = torch.as_tensor(images, device=dev)
         fused_ok = verify and hasattr(self.verifier.matcher, "make_fused_match_verify")
         with record_function("gate.detect"):
             kp_all = self._detect_all(imgs) if fused_ok else None

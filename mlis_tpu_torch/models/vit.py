@@ -118,16 +118,16 @@ def _keys_cubic(x: np.ndarray) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
-def resample_weights(n_in: int, n_out: int) -> np.ndarray:
-    """(n_out, n_in) weights of jax.image.resize(method="bicubic") along one
-    axis: half-pixel centres, the kernel widened by n_in / n_out when
-    downsampling (antialiasing), rows normalised; computed in float64 once
-    per grid."""
+def resample_weights(n_in: int, n_out: int, method: str = "bicubic") -> np.ndarray:
+    """(n_out, n_in) weights of jax.image.resize(method="bicubic" or
+    "linear") along one axis: half-pixel centres, the kernel widened by
+    n_in / n_out when downsampling (antialiasing), rows normalised;
+    computed in float64 once per grid."""
     inv_scale = n_in / n_out
     kernel_scale = max(inv_scale, 1.0)
     sample = (np.arange(n_out, dtype=np.float64) + 0.5) * inv_scale - 0.5
     x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float64)[:, None]) / kernel_scale
-    w = _keys_cubic(x)
+    w = _keys_cubic(x) if method == "bicubic" else np.maximum(0.0, 1.0 - x)
     total = w.sum(0, keepdims=True)
     w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
                  w / np.where(total != 0, total, 1.0), 0.0)

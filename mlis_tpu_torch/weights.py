@@ -22,7 +22,8 @@ tree onto the port's module names:
 * AnyLoc's ``vlad/centers`` group is the (K, D) vocabulary, kept as is.
 
 :func:`carry_jax_vpr` puts a flax-initialised encoder's parameters (numpy
-leaves) into the port's encoder of the same architecture,
+leaves) into the port's encoder of the same architecture, :func:`carry_jax_vit`
+a bare ViT's (the fine-tuning trainer's encoder),
 :func:`carry_jax_matcher` a matcher's (LightGlue, SuperGlue, LoFTR in
 either architecture) and :func:`carry_jax_yolo` a YOLOv8's. LoFTR's
 ``loftr:`` tree names its layers as the port's modules do (``backbone/c1a``,
@@ -169,6 +170,19 @@ def carry_jax_matcher(matcher, params: Any, superpoint: Any = None):
         matcher.net.load_state_dict(from_jax_params(params, scan_prefixes=()), strict=True)
     matcher.net.to(matcher.device)
     return matcher
+
+
+def carry_jax_vit(vit, params: Any):
+    """Load the JAX package's ViT parameter tree (a flax ``ViT``'s
+    ``{"params": ...}``, numpy leaves) into the port's ``ViT`` of the same
+    configuration, or into a module that holds it as ``.vit`` (the
+    trainer's :class:`~mlis_tpu_torch.train.trainer.GeMEncoder`). Returns
+    the module it was given."""
+    target = getattr(vit, "vit", vit)
+    state = from_jax_params(params, scan_prefixes=())
+    target.load_state_dict({k: v.to(next(target.parameters()).device) for k, v in state.items()},
+                           strict=True)
+    return vit
 
 
 def carry_jax_yolo(detector, params: Any):

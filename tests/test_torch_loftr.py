@@ -33,9 +33,9 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from mlis_tpu.eval import quality as jq  # noqa: E402
 from mlis_tpu.models import loftr as jl  # noqa: E402
 from mlis_tpu.models.weights import load_params_npz as jax_load_params  # noqa: E402
+from test_torch_quality import shared_v2_scene  # noqa: E402
 
 from mlis_tpu_torch.models import loftr as tl  # noqa: E402
 from mlis_tpu_torch.ops.image import resize_nhwc  # noqa: E402
@@ -50,8 +50,8 @@ def _np_tree(params):
 
 
 @pytest.fixture(scope="module")
-def scene_gray():
-    sc = jq.make_quality_scene_v2(n_floors=2, n_places=4, hw=(135, 180), seed=0)
+def scene_gray(tmp_path_factory):
+    sc = shared_v2_scene(tmp_path_factory)
     return np.ascontiguousarray((sc.images.astype(np.float32) / 255.0)[..., None])
 
 

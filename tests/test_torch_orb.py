@@ -24,8 +24,8 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from mlis_tpu.eval import quality as jq  # noqa: E402
 from mlis_tpu.models import orb as jorb  # noqa: E402
+from test_torch_quality import shared_v2_scene  # noqa: E402
 
 from mlis_tpu_torch.gating.verification import GeometricVerifier  # noqa: E402
 from mlis_tpu_torch.models import orb as torb  # noqa: E402
@@ -34,8 +34,8 @@ BIT_SHARE = 0.999
 
 
 @pytest.fixture(scope="module")
-def frames():
-    sc = jq.make_quality_scene_v2(n_floors=2, n_places=4, hw=(135, 180), seed=0)
+def frames(tmp_path_factory):
+    sc = shared_v2_scene(tmp_path_factory)
     return sc.images, np.asarray(sc.K)
 
 

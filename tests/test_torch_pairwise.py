@@ -174,13 +174,13 @@ def test_gate_matches_mlis_tpu(strict):
 
 
 def test_port_runs_without_jax_or_mlis_tpu():
-    """Every module of mlis_tpu_torch imports, and the sweep, the gate paths
-    and the pose-graph demo run, with jax absent and any mlis_tpu import
-    refused."""
+    """Every module of mlis_tpu_torch imports, and the sweep, the gate paths,
+    the pose-graph demo and two trainer steps run, with jax, flax, optax and
+    orbax absent and any mlis_tpu import refused."""
     code = textwrap.dedent("""
         import sys
-        sys.modules["jax"] = None
-        sys.modules["flax"] = None
+        for banned in ("jax", "flax", "optax", "orbax"):
+            sys.modules[banned] = None
 
         class Refuse:
             def find_spec(self, name, path=None, target=None):
@@ -200,7 +200,11 @@ def test_port_runs_without_jax_or_mlis_tpu():
             importlib.import_module(name)
         assert {"mlis_tpu_torch.opt.pose_graph", "mlis_tpu_torch.eval.report",
                 "mlis_tpu_torch.cli", "mlis_tpu_torch.ops.geometry",
-                "mlis_tpu_torch.models.convert", "mlis_tpu_torch.models.yolo"} <= set(names), names
+                "mlis_tpu_torch.models.convert", "mlis_tpu_torch.models.yolo",
+                "mlis_tpu_torch.parallel.mesh", "mlis_tpu_torch.parallel.distributed_knn",
+                "mlis_tpu_torch.parallel.sharded_gate", "mlis_tpu_torch.parallel.scaling",
+                "mlis_tpu_torch.utils.flops", "mlis_tpu_torch.train.trainer",
+                "mlis_tpu_torch.train.vpr_finetune_demo"} <= set(names), names
         from mlis_tpu_torch.ops.pairwise import candidate_counts, candidate_counts_host
         from mlis_tpu_torch.gating.place_recognition import _build_vpr, process_image_sequence
         rng = np.random.default_rng(0)
@@ -258,7 +262,15 @@ def test_port_runs_without_jax_or_mlis_tpu():
         filt = DynamicObjectFilter(YOLODetector(YOLOConfig.tiny_test(), input_size=(64, 96),
                                                 device="cpu"))
         assert filt.filter_batch(scene.images[:2, :, :, None].repeat(3, -1))[1].shape == (2, 64, 96)
-        assert not any(m == "jax" or m.startswith(("jax.", "mlis_tpu.")) or m == "mlis_tpu"
+        from mlis_tpu_torch.train.trainer import GeMEncoder, VPRTrainer
+        from mlis_tpu_torch.train.vpr_finetune_demo import make_aliasing_images
+        imgs, ids, _ = make_aliasing_images(n_places=2, n_views=2, hw=(32, 48), device="cpu")
+        enc = GeMEncoder(ViT(ViTConfig.tiny_test(dtype=torch.float32, patch_size=8),
+                             use_kernel=False))
+        trainer = VPRTrainer(enc, device="cpu")  # a one-rank gloo group
+        assert all(np.isfinite(trainer.train_batch(imgs, ids)) for _ in range(2))
+        assert not any(m in ("jax", "optax", "orbax", "mlis_tpu")
+                       or m.startswith(("jax.", "optax.", "orbax.", "mlis_tpu."))
                        for m, v in sys.modules.items() if v is not None)
         print("ok")
     """)

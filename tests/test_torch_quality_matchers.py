@@ -55,7 +55,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from mlis_tpu.eval import quality as jq  # noqa: E402
 from mlis_tpu.models import weights as jw  # noqa: E402
-from test_torch_quality import HW, HYP, jax_ransac_uniforms  # noqa: E402
+from test_torch_quality import HW, HYP, jax_ransac_uniforms, shared_v2_scene  # noqa: E402
 
 from mlis_tpu_torch import weights as tw  # noqa: E402
 from mlis_tpu_torch.eval import quality as tq  # noqa: E402
@@ -72,8 +72,8 @@ LABELS = {"superglue": "superglue_parallax.npz", "orb": "orb_weight_free",
 
 
 @pytest.fixture(scope="module")
-def scene():
-    return jq.make_quality_scene_v2(n_floors=2, n_places=4, hw=HW, seed=0)
+def scene(tmp_path_factory):
+    return shared_v2_scene(tmp_path_factory)
 
 
 def jax_family_uniforms(family: str, n_surv: int, verify_batch: int) -> np.ndarray:
@@ -116,12 +116,19 @@ def _float32_configs(mp) -> None:
             name, (cls,), {"__annotations__": {"dtype": Any}, "dtype": jnp.float32})))
 
 
-@pytest.mark.parametrize("family,float32", [
-    ("superglue", False), ("superglue", True), ("orb", False), ("loftr", False)])
+@pytest.mark.parametrize("family,float32", [("superglue", False), ("superglue", True)])
 def test_matcher_row_matches_jax(scene, family, float32):
     """quality2's row for ``family``: the same weights label, candidates,
     floor rejections and verified pairs as mlis_tpu, decisions within the
-    family's band (module docstring)."""
+    family's band (module docstring). The ORB and LoFTR rows are in
+    test_torch_quality_matchers_orb_loftr.py, so that two test workers
+    share the rows."""
+    hold_row(scene, family, float32)
+
+
+def hold_row(scene, family: str, float32: bool) -> None:
+    """Both packages' quality2 row for ``family`` on ``scene``, held to the
+    family's band."""
     jpath, tpath = _weights(family)
     vb = VERIFY_BATCH[family]
     with pytest.MonkeyPatch.context() as mp:

@@ -14,15 +14,15 @@ import torch
 jax = pytest.importorskip("jax")
 
 from mlis_tpu.eval import quality as jq  # noqa: E402
-from test_torch_quality import HW, HYP, jax_ransac_uniforms  # noqa: E402
+from test_torch_quality import HW, HYP, jax_ransac_uniforms, shared_v2_scene  # noqa: E402
 
 from mlis_tpu_torch.eval import quality as tq  # noqa: E402
 from mlis_tpu_torch.weights import default_parallax_matcher_checkpoint  # noqa: E402
 
 
 @pytest.fixture(scope="module")
-def scene():
-    return jq.make_quality_scene_v2(n_floors=2, n_places=4, hw=HW, seed=0)
+def scene(tmp_path_factory):
+    return shared_v2_scene(tmp_path_factory)
 
 
 def _row_encoders(name):

@@ -28,9 +28,9 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from mlis_tpu.eval import quality as jq  # noqa: E402
 from mlis_tpu.models import lightglue as jlg  # noqa: E402
 from mlis_tpu.models.superpoint import SuperPointConfig as JaxSPC  # noqa: E402
+from test_torch_quality import shared_v2_scene  # noqa: E402
 
 from mlis_tpu_torch.models import lightglue as tlg  # noqa: E402
 from mlis_tpu_torch.models.superpoint import SuperPointConfig  # noqa: E402
@@ -41,8 +41,8 @@ TINY = dict(descriptor_dim=32, dim=32, num_heads=2, depth=2)
 
 
 @pytest.fixture(scope="module")
-def scene():
-    return jq.make_quality_scene_v2(n_floors=2, n_places=4, hw=(135, 180), seed=0)
+def scene(tmp_path_factory):
+    return shared_v2_scene(tmp_path_factory)
 
 
 def _inputs():

@@ -29,7 +29,6 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from mlis_tpu.eval import quality as jq  # noqa: E402
 from mlis_tpu.gating import verification as jv  # noqa: E402
 from mlis_tpu.models.lightglue import LightGlue as JaxLG  # noqa: E402
 from mlis_tpu.models.lightglue import MatcherConfig as JaxMC  # noqa: E402
@@ -38,6 +37,7 @@ from mlis_tpu.models.loftr import LoFTRConfig as JaxLoFTRConfig  # noqa: E402
 from mlis_tpu.models.superpoint import SuperPointConfig as JaxSPC  # noqa: E402
 from mlis_tpu.models.weights import matcher_arch_from_npz  # noqa: E402
 from mlis_tpu.ops.image import to_grayscale as jax_gray  # noqa: E402
+from test_torch_quality import shared_v2_scene  # noqa: E402
 
 from mlis_tpu_torch.gating import verification as tv  # noqa: E402
 from mlis_tpu_torch.models.lightglue import LightGlue  # noqa: E402
@@ -52,8 +52,8 @@ PAIRS = [(0, 8), (1, 9), (2, 10), (0, 4), (3, 11)]
 
 
 @pytest.fixture(scope="module")
-def scene():
-    sc = jq.make_quality_scene_v2(n_floors=2, n_places=4, hw=(135, 180), seed=0)
+def scene(tmp_path_factory):
+    sc = shared_v2_scene(tmp_path_factory)
     gray = np.asarray(jax_gray(jnp.asarray(sc.images)))
     return sc.images, gray, np.asarray(sc.K)
 
