@@ -173,6 +173,28 @@ Phases, one line each as they end:
    images within 1e-3 of the CPU's, steps/s and peak memory, then
    ``run_demo()`` held to its contract; (e) ``estimate_gate_scaling`` at 4
    and 8 cards calibrated by (a)'s single-card rate.
+14. the pretraining drivers, outside inference mode, each ``main`` at its
+   own widths with its outputs in a temporary directory: (a)
+   ``pretrain_matcher`` (LightGlue d9 / 256, 512 keypoints, 270x360,
+   batch 8, ``--parallax`` from ``lightglue_parallax_sp.npz``, 20 steps in
+   chunks of 10, evals of 16 pairs every 10): steps/s, peak memory, the
+   losses, the shipped weights' step-0 recall and precision beside the
+   log's best (fails below 0.5), the saved npz reloaded through
+   ``LightGlue.from_checkpoint`` equal to the trainer's weights at float16
+   rounding; then ``--arch superglue`` from random weights for 10 steps
+   (finite losses, the weights move); (b) ``pretrain_loftr --parallax``
+   at 272x360, batch 4, from ``loftr_parallax.npz``, reported likewise;
+   (c) ``pretrain_superpoint`` at its defaults from random weights,
+   ``corner_metrics`` and ``repeatability`` at steps 0 and 20; (d)
+   ``pretrain_vpr`` for tiny (from ``vpr_tiny_v2.npz`` at 136x180, 20
+   steps), SALAD and MixVPR (10), CricaVPR (ViT-B/14 at 322, batch 32, 5)
+   and AnyLoc's 64-cluster fit; (e) one tiny float32 step of each trainer
+   on the card and on the CPU from the same weights and draws (losses
+   within 1e-4 relative, weights within 1e-4 relative and 2 lr an
+   entry); no kernel may launch in (a)-(e); (f) ``flash_mha`` and
+   ``multi_head_attention`` raise on inputs that require grad and launch
+   under ``torch.no_grad()``. The CPU rehearsal runs (a)-(d) with
+   ``--tiny`` and without the two full backbones.
 Phases 5, 6, 8, 9 and 12a run like phase 3 (warm-up, three timed runs, one
 profiled run), with every launch counter set to 0 before each run.
 
@@ -738,7 +760,8 @@ def build_pipeline(dev, dtype, n_kpts: int = 1024):
 
 
 STAGES = ("gate.detect", "gate.encode", "gate.retrieval", "lightglue.match", "superglue.sinkhorn",
-          "loftr.match", "loftr.coarse", "loftr.fine", "orb.match", "epipolar.ransac")
+          "loftr.match", "loftr.coarse", "loftr.fine", "orb.match", "epipolar.ransac",
+          "train.pairs", "train.forward", "train.backward", "train.update")
 
 
 def profile_gate(dev, pipe, inputs, gen, best_wall: float, encode_batch_size: int = 128) -> None:
@@ -3191,6 +3214,513 @@ def phase_parallel(dev, args) -> dict:
     return {"dense_attention": gate["dense_attention"]}
 
 
+# -- phase 14: the pretraining drivers ------------------------------------------------
+
+MATCHER_CKPT = "checkpoints/lightglue_parallax_sp.npz"
+LOFTR_CKPT = "checkpoints/loftr_parallax.npz"
+VPR_TINY_CKPT = "checkpoints/vpr_tiny_v2.npz"
+MIN_SHIPPED_RECALL = 0.5  # 14a: the shipped matcher's step-0 recall on the port's draws
+HELDOUT_TIE_BAND = 5e-3  # 14d: a query's top two similarities this close may swap
+PARITY_LOSS_RTOL = 1e-4  # 14e: card vs CPU, one float32 step (TF32 off)
+PARITY_PARAM_RTOL = 1e-4
+
+
+def log_best(name: str, key: str) -> float:
+    """The best held-out recall a shipped checkpoint's training log records
+    (a TPU run of the JAX package on its own draws: a target, not a bound)."""
+    with open(f"checkpoints/{name}_log.json") as f:
+        return float(json.load(f)[key])
+
+
+def _trained_module(trainer) -> torch.nn.Module:
+    return trainer.matcher.net if hasattr(trainer, "matcher") else trainer.sp.net
+
+
+def _state_copy(module: torch.nn.Module) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
+
+
+@contextlib.contextmanager
+def recording(module, cls_name: str, on_init=None):
+    """``module.cls_name`` (a trainer class, which the drivers import from
+    its module when they run) replaced by a subclass that records its
+    instances, the initial weights of the module it trains (and
+    ``on_init(trainer)`` there), each train_chunk's steps and host seconds
+    (train_chunk ends by copying its losses to the host, so the clock
+    covers the device work) and the weights at each save_checkpoint."""
+    orig = getattr(module, cls_name)
+    rec = {"instances": [], "chunks": [], "saves": {}}
+
+    class Recorded(orig):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            rec["instances"].append(self)
+            rec["initial"] = _state_copy(_trained_module(self))
+            if on_init is not None:
+                rec["on_init"] = on_init(self)
+
+        def train_chunk(self, steps, *a, **kw):
+            t = time.perf_counter()
+            out = super().train_chunk(steps, *a, **kw)
+            rec["chunks"].append((steps, time.perf_counter() - t))
+            return out
+
+        def save_checkpoint(self, path):
+            super().save_checkpoint(path)
+            rec["saves"][path] = _state_copy(_trained_module(self))
+
+    setattr(module, cls_name, Recorded)
+    try:
+        yield rec
+    finally:
+        setattr(module, cls_name, orig)
+
+
+@contextlib.contextmanager
+def timed_vpr_chunks():
+    """pretrain_vpr.make_train_chunk wrapped: each chunk's steps and seconds."""
+    from mlis_tpu_torch.train import pretrain_vpr as tpv
+
+    orig = tpv.make_train_chunk
+    rec = {"chunks": []}
+
+    def make(*a, **kw):
+        fn = orig(*a, **kw)
+
+        def chunk(n, *ca, **ckw):
+            t = time.perf_counter()
+            out = fn(n, *ca, **ckw)
+            rec["chunks"].append((n, time.perf_counter() - t))
+            return out
+
+        return chunk
+
+    tpv.make_train_chunk = make
+    try:
+        yield rec
+    finally:
+        tpv.make_train_chunk = orig
+
+
+def steps_per_s(chunks) -> float:
+    """Steps per second over the chunks after the first (its steps pay the
+    first-call costs), or over the one chunk there is."""
+    timed = chunks[1:] or chunks
+    return sum(n for n, _ in timed) / sum(t for _, t in timed)
+
+
+def peak_reset(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_bytes(dev) -> int:
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _losses(hist) -> list:
+    return [float(x[1]) for x in hist["loss"]]
+
+
+def check_saved_weights(what: str, saved: dict, module: torch.nn.Module) -> None:
+    """The npz's reload equals the weights the trainer saved, at float16
+    rounding (the checkpoints' format)."""
+    got = module.state_dict()
+    if set(got) != set(saved):
+        raise AssertionError(f"{what}: the reload has other tensors than the trainer")
+    for k, v in saved.items():
+        if not torch.equal(got[k].detach().cpu().half(), v.half()):
+            raise AssertionError(f"{what}: {k} differs from the trainer's at float16 rounding")
+
+
+def phase_pretrain_matchers(dev, tmp: str, name_power: str) -> None:
+    """14a and 14b: pretrain_matcher (LightGlue warm-started from the shipped
+    parallax checkpoint, then SuperGlue from random weights) and
+    pretrain_loftr (from the shipped parallax LoFTR)."""
+    from mlis_tpu_torch.models.lightglue import LightGlue
+    from mlis_tpu_torch.models.loftr import LoFTR, LoFTRConfig
+    from mlis_tpu_torch.models.superpoint import SuperPointConfig
+    from mlis_tpu_torch.train import loftr_trainer, matcher_trainer, pretrain_loftr
+    from mlis_tpu_torch.train import pretrain_matcher
+
+    card = dev.type == "cuda"
+    # the drivers' own defaults set the widths; the CPU rehearsal runs --tiny
+    steps = ["--steps", "20", "--chunk", "10", "--eval-every", "10"] if card else [
+        "--tiny", "--steps", "4", "--chunk", "2", "--eval-every", "2"]
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "lightglue_parallax.npz")
+    peak_reset(dev)
+    with recording(matcher_trainer, "MatcherTrainer") as rec:
+        hist = pretrain_matcher.main(["--device", dev.type, "--out", path, "--parallax", *steps]
+                                     + (["--init-from", MATCHER_CKPT] if card else []))
+    peak = peak_bytes(dev)
+    (_, r0, p0), (_, r_end, p_end) = hist["eval"][0], hist["eval"][-1]
+    if not np.isfinite(_losses(hist)).all():
+        raise AssertionError(f"14a: losses {hist['loss']}")
+    if card and r0 < MIN_SHIPPED_RECALL:
+        raise AssertionError(f"14a: the shipped matcher's step-0 recall {r0} < {MIN_SHIPPED_RECALL}")
+    sp_cfg = SuperPointConfig(max_keypoints=512) if card else SuperPointConfig.tiny_test(
+        max_keypoints=48)
+    back = LightGlue.from_checkpoint(path, sp_cfg=sp_cfg, device=dev)
+    check_saved_weights("14a", rec["saves"][path], back.net)
+    rate = steps_per_s(rec["chunks"])
+    if card:  # where a step's time goes: two more steps of the same trainer
+        trainer = rec["instances"][0]
+        profile_run(dev, lambda: trainer.train_chunk(2, batch_size=8), 2 / rate)
+    log("14a pretrain_matcher", t0, gpu=json.dumps(name_power),
+        config="lightglue_d9_dim256_kpts512_270x360_b8_parallax" if card else "tiny",
+        steps=hist["loss"][-1][0], steps_per_s=f"{rate:.3f}", peak_mem_bytes=peak,
+        losses=",".join(f"{x:.5f}" for x in _losses(hist)),
+        recall0=f"{r0:.4f}", precision0=f"{p0:.4f}",
+        log_best_recall=f"{log_best('lightglue_parallax_sp', 'best_recall'):.4f}",
+        recall_end=f"{r_end:.4f}", precision_end=f"{p_end:.4f}",
+        best_saved=f"{hist['best_recall']:.4f}", reload="equal_at_float16")
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "superglue_homog.npz")
+    # chunks of 5: the rate is read on the second, after the first-call costs
+    sg_steps = ["--steps", "10", "--chunk", "5", "--eval-every", "10"] if card else steps
+    peak_reset(dev)
+    with recording(matcher_trainer, "MatcherTrainer") as rec:
+        hist = pretrain_matcher.main(["--device", dev.type, "--out", path, "--arch", "superglue",
+                                      *sg_steps])
+    peak = peak_bytes(dev)
+    final = _state_copy(rec["instances"][0].matcher.net)
+    moved = sum(not torch.equal(final[k], v) for k, v in rec["initial"].items())
+    if not np.isfinite(_losses(hist)).all() or moved == 0:
+        raise AssertionError(f"14a superglue: losses {hist['loss']}, {moved} tensors moved")
+    rate = steps_per_s(rec["chunks"])
+    log("14a pretrain_matcher superglue", t0, gpu=json.dumps(name_power),
+        config="superglue_d9_dim256_kpts512_270x360_b8_homography_random" if card else "tiny",
+        steps=hist["loss"][-1][0], steps_per_s=f"{rate:.3f}", peak_mem_bytes=peak,
+        losses=",".join(f"{x:.5f}" for x in _losses(hist)),
+        tensors_moved=f"{moved}/{len(final)}", recall_end=f"{hist['eval'][-1][1]:.4f}")
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "loftr_parallax.npz")
+    lf_args = ["--height", "272", "--width", "360", "--init-from", LOFTR_CKPT, "--batch", "4"]
+    peak_reset(dev)
+    with recording(loftr_trainer, "LoFTRTrainer") as rec:
+        hist = pretrain_loftr.main(["--device", dev.type, "--out", path, "--parallax", *steps]
+                                   + (lf_args if card else []))
+    peak = peak_bytes(dev)
+    (_, r0, p0), (_, r_end, p_end) = hist["eval"][0], hist["eval"][-1]
+    if not np.isfinite(_losses(hist)).all():
+        raise AssertionError(f"14b: losses {hist['loss']}")
+    back = LoFTR(LoFTRConfig() if card else LoFTRConfig.tiny_test(), device=dev)
+    back.load_weights(path)
+    check_saved_weights("14b", rec["saves"][path], back.net)
+    rate = steps_per_s(rec["chunks"])
+    if card:
+        trainer = rec["instances"][0]
+        profile_run(dev, lambda: trainer.train_chunk(2, batch_size=4), 2 / rate)
+    log("14b pretrain_loftr", t0, gpu=json.dumps(name_power),
+        config="loftr_lite_272x360_b4_parallax" if card else "tiny",
+        steps=hist["loss"][-1][0], steps_per_s=f"{rate:.3f}", peak_mem_bytes=peak,
+        losses=",".join(f"{x:.5f}" for x in _losses(hist)),
+        recall0=f"{r0:.4f}", precision0=f"{p0:.4f}",
+        log_best_recall=f"{log_best('loftr_parallax', 'best_recall'):.4f}",
+        recall_end=f"{r_end:.4f}", precision_end=f"{p_end:.4f}", reload="equal_at_float16")
+
+
+def phase_pretrain_superpoint(dev, tmp: str, name_power: str) -> None:
+    """14c: pretrain_superpoint at its defaults from random weights."""
+    from mlis_tpu_torch.train import pretrain_superpoint, superpoint_trainer
+
+    card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "superpoint_synth.npz")
+    steps = ["--steps", "20", "--chunk", "10", "--eval-every", "20"] if card else [
+        "--tiny", "--steps", "4", "--chunk", "2", "--eval-every", "4"]
+    peak_reset(dev)
+    # step 0's repeatability, before any step (the driver measures it with
+    # its later evals only)
+    with recording(superpoint_trainer, "SuperPointTrainer",
+                   on_init=lambda t: t.repeatability()) as rec:
+        hist = pretrain_superpoint.main(["--device", dev.type, "--out", path, *steps])
+    peak = peak_bytes(dev)
+    m0, m_end = hist["eval"][0][1], hist["eval"][-1][1]
+    if not np.isfinite(np.asarray([x[1:] for x in hist["loss"]])).all():
+        raise AssertionError(f"14c: losses {hist['loss']}")
+    rate = steps_per_s(rec["chunks"])
+    log("14c pretrain_superpoint", t0, gpu=json.dumps(name_power),
+        config="superpoint_270x360_b8_random" if card else "tiny",
+        steps=hist["loss"][-1][0], steps_per_s=f"{rate:.3f}", peak_mem_bytes=peak,
+        losses=";".join(",".join(f"{v:.4f}" for v in x[1:]) for x in hist["loss"]),
+        corner_recall0=f"{m0['corner_recall']:.4f}",
+        detector_precision0=f"{m0['detector_precision']:.4f}",
+        repeatability0=f"{rec['on_init']:.4f}", corner_recall_end=f"{m_end['corner_recall']:.4f}",
+        detector_precision_end=f"{m_end['detector_precision']:.4f}",
+        repeatability_end=f"{m_end['repeatability']:.4f}",
+        log_best_corner_recall=f"{log_best('superpoint_synth', 'best_corner_recall'):.4f}")
+
+
+def heldout_witness(what: str, apply_on, hw, dev) -> dict:
+    """``pretrain_vpr.heldout_recall`` of one encoder on the card and on the
+    CPU over the same held-out draws, made once on the CPU (seed 77,000, as
+    the driver's own): a fault of the held-out path on the card then shows
+    as a difference, which the card's own draws could not tell from a draw
+    difference. ``apply_on(device, dtype)`` is the encoder's apply function
+    there. In float32 (TF32 off) each query's nearest neighbour must be the
+    same on both devices, except where its top two similarities on the CPU
+    lie within HELDOUT_TIE_BAND, and the recalls may differ by those swaps
+    only. The drivers' own bf16 is reported beside it and not held: VLAD's
+    hard assignment turns bf16 rounding into whole-cluster changes (on the
+    CPU alone, bf16 against float32 moves 74 of the 6,144 patch
+    assignments of the shipped vpr_anyloc.npz on these draws, and 4 of its
+    64 nearest neighbours)."""
+    from mlis_tpu_torch.train import pretrain_vpr as tpv
+
+    cpu = torch.device("cpu")
+    draws = tpv.draw_batch_parallax(32, 2, hw, generator=torch.Generator().manual_seed(77_000),
+                                    device="cpu")
+    fields = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        recall, nn1 = {}, {}
+        for d in (dev, cpu):
+            fn = apply_on(d, dtype)
+            recall[d.type] = tpv.heldout_recall(fn, hw=hw, parallax=True, device=d,
+                                                draws=draws.to(d))
+            with torch.no_grad():
+                imgs, _ = tpv.sample_training_batch(32, 2, hw, 0.08, 0.08, True, None, d,
+                                                    draws.to(d))
+                desc = fn(imgs).to(torch.float32).cpu()
+            sims = desc @ desc.T
+            sims.fill_diagonal_(-float("inf"))
+            top2 = sims.topk(2, dim=1)
+            nn1[d.type] = top2.indices[:, 0]
+            if d.type == "cpu":
+                margin = top2.values[:, 0] - top2.values[:, 1]
+        swaps = nn1[dev.type] != nn1["cpu"]
+        unexplained = int((swaps & (margin > HELDOUT_TIE_BAND)).sum())
+        n_swaps = int(swaps.sum())
+        if dtype == torch.float32 and (
+                unexplained or abs(recall[dev.type] - recall["cpu"]) * len(swaps) > n_swaps + 1e-9):
+            raise AssertionError(f"14d {what}: float32 held-out recall@1 {recall[dev.type]} on "
+                                 f"{dev.type} vs {recall['cpu']} on the CPU with the same draws, "
+                                 f"{n_swaps} nearest neighbours differ ({unexplained} outside "
+                                 f"the tie band)")
+        fields.update({f"witness_{tag}": f"{recall[dev.type]:.4f}",
+                       f"witness_{tag}_cpu": f"{recall['cpu']:.4f}",
+                       f"witness_{tag}_swaps": f"{n_swaps}/{len(swaps)}({unexplained}_outside)"})
+    return fields
+
+
+def _tiny_vpr_on(path: str, centers: bool = False):
+    """apply_on(device, dtype) for heldout_witness: the tiny encoder of an
+    npz computing in ``dtype`` (with AnyLoc's VLAD vocabulary when
+    ``centers``)."""
+    from mlis_tpu_torch.models.vit import ViT, ViTConfig
+    from mlis_tpu_torch.train import pretrain_vpr as tpv
+    from mlis_tpu_torch.weights import load_npz
+
+    tree = load_npz(path)
+
+    def apply_on(d, dtype):
+        model = ViT(ViTConfig.tiny_test(patch_size=8, dtype=dtype), use_kernel=False)
+        model.load_state_dict(tree["vpr"], strict=True)
+        model.to(d).eval()
+        if centers:
+            return tpv._anyloc_apply(model, tree["vlad"]["centers"].to(d))
+        return tpv._make_apply(model)
+
+    return apply_on
+
+
+def phase_pretrain_vpr(dev, tmp: str, name_power: str) -> None:
+    """14d: pretrain_vpr.main for every arch."""
+    from mlis_tpu_torch.train import pretrain_vpr
+
+    card = dev.type == "cuda"
+    runs = [
+        ("tiny", ["--parallax", "--init-from", VPR_TINY_CKPT, "--height", "136", "--width", "180",
+                  "--steps", "20", "--chunk", "10", "--eval-every", "10"]),
+        # at least two chunks each: steps_per_s times those after the first
+        ("salad", ["--steps", "10", "--chunk", "5", "--eval-every", "10"]),
+        ("mixvpr", ["--steps", "10", "--chunk", "5", "--eval-every", "10"]),
+        ("cricavpr", ["--steps", "5", "--chunk", "2", "--eval-every", "5"]),
+        ("anyloc", ["--clusters", "64", "--parallax", "--height", "136", "--width", "180",
+                    "--steps", "32"]),
+    ]
+    for arch, argv in runs:
+        t0 = time.perf_counter()
+        if not card:
+            if arch in ("mixvpr", "cricavpr"):
+                log(f"14d pretrain_vpr {arch}", t0, skipped="cpu rehearsal (full backbone)")
+                continue
+            argv = ["--tiny"] + (["--parallax", "--init-from", VPR_TINY_CKPT]
+                                 if arch == "tiny" else [])
+        path = os.path.join(tmp, f"vpr_{arch}.npz")
+        peak_reset(dev)
+        with timed_vpr_chunks() as rec:
+            hist = pretrain_vpr.main(["--device", dev.type, "--arch", arch, "--out", path, *argv])
+        peak = peak_bytes(dev)
+        fields = {}
+        hw = (hist["config"]["height"], hist["config"]["width"])
+        if arch == "anyloc":
+            fields.update(recall_at_1=f"{hist['best_recall_at_1']:.4f}",
+                          log_recall_at_1=f"{log_best('vpr_anyloc', 'best_recall_at_1'):.4f}")
+            # the vocabulary this run fitted, scored on both devices
+            fields.update(heldout_witness(arch, _tiny_vpr_on(path, centers=True), hw, dev))
+        else:
+            if not np.isfinite(_losses(hist)).all():
+                raise AssertionError(f"14d {arch}: losses {hist['loss']}")
+            fields.update(steps=hist["loss"][-1][0],
+                          steps_per_s=f"{steps_per_s(rec['chunks']):.3f}",
+                          losses=",".join(f"{x:.5f}" for x in _losses(hist)),
+                          recall0=f"{hist['eval'][0][1]:.4f}",
+                          recall_end=f"{hist['eval'][-1][1]:.4f}")
+            if arch == "tiny":
+                fields["log_best_recall"] = f"{log_best('vpr_tiny_v2', 'best_recall_at_1'):.4f}"
+                # the shipped weights (the run's step 0), scored on both devices
+                fields.update(heldout_witness(arch, _tiny_vpr_on(VPR_TINY_CKPT), hw, dev))
+        if not os.path.exists(path):
+            raise AssertionError(f"14d {arch}: no checkpoint written")
+        log(f"14d pretrain_vpr {arch}", t0, gpu=json.dumps(name_power), peak_mem_bytes=peak,
+            **fields)
+
+
+def _parity_step(what: str, make, step, dev, lr: float) -> dict:
+    """One step of the trainer ``make(device)`` builds (from one seed, so the
+    same initial weights on both devices), on the CPU and on the card,
+    through ``step(trainer, device)``
+    (the same draws on both); the losses within PARITY_LOSS_RTOL, the
+    weights within PARITY_PARAM_RTOL over all of them and entry by entry
+    within Adam's own bound of 2 lr."""
+    cpu = make(torch.device("cpu"))
+    card = make(dev)
+    want = float(torch.as_tensor(step(cpu, torch.device("cpu"))).reshape(-1)[0])
+    got = float(torch.as_tensor(step(card, dev)).reshape(-1)[0].cpu())
+    a = torch.cat([p.detach().cpu().reshape(-1) for p in _parity_module(card).parameters()])
+    b = torch.cat([p.detach().reshape(-1) for p in _parity_module(cpu).parameters()])
+    rel = float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+    worst = float((a - b).abs().max())
+    if not (abs(got - want) <= PARITY_LOSS_RTOL * abs(want) and rel <= PARITY_PARAM_RTOL
+            and worst <= 2 * lr):
+        raise AssertionError(f"14e {what}: loss {got} vs {want}, weights {rel:.3g} relative, "
+                             f"largest entry {worst / lr:.3g} lr apart")
+    return {"loss_card": f"{got:.6f}", "loss_cpu": f"{want:.6f}", "weights_rel": f"{rel:.3g}",
+            "max_entry_lr": f"{worst / lr:.3g}"}
+
+
+def _parity_module(x) -> torch.nn.Module:
+    return x if isinstance(x, torch.nn.Module) else _trained_module(x)
+
+
+def phase_pretrain_parity(dev, name_power: str) -> None:
+    """14e: one step of each trainer at its tiny config, float32, card vs CPU."""
+    from mlis_tpu_torch.models.lightglue import LightGlue, MatcherConfig
+    from mlis_tpu_torch.models.loftr import LoFTR, LoFTRConfig
+    from mlis_tpu_torch.models.superpoint import SuperPoint, SuperPointConfig
+    from mlis_tpu_torch.models.vit import ViT, ViTConfig
+    from mlis_tpu_torch.train import pretrain_vpr as tpv
+    from mlis_tpu_torch.train.loftr_trainer import LoFTRTrainer
+    from mlis_tpu_torch.train.matcher_trainer import MatcherTrainer, draw_layered_pair
+    from mlis_tpu_torch.train.optim import ClippedAdam
+    from mlis_tpu_torch.train.superpoint_trainer import SuperPointTrainer, draw_superpoint_step
+
+    f32 = torch.float32
+    hw = (64, 96)
+    g = torch.Generator().manual_seed(0)
+    pair_draws = draw_layered_pair(2, *hw, generator=g, device="cpu")
+    sp_draws = draw_superpoint_step(2, *hw, g, "cpu")
+    vpr_hw = (96, 128)
+    vpr_draws = tpv.draw_batch_parallax(6, 3, vpr_hw, generator=g, device="cpu")
+    lr = 1e-4
+
+    def matcher(device):
+        lg = LightGlue(SuperPointConfig.tiny_test(max_keypoints=48, dtype=f32),
+                       MatcherConfig.tiny_test(dtype=f32), device=device).init_random_(0)
+        return MatcherTrainer(lg, hw, learning_rate=lr, pair_mode="parallax")
+
+    def loftr(device):
+        lf = LoFTR(LoFTRConfig.tiny_test(dtype=f32), device=device).init_random_(0)
+        return LoFTRTrainer(lf, hw, learning_rate=lr, pair_mode="parallax")
+
+    def superpoint(device):
+        sp = SuperPoint(SuperPointConfig.tiny_test(dtype=f32), device=device).init_random_(0)
+        return SuperPointTrainer(sp, hw, learning_rate=lr)
+
+    def vpr(device):
+        vit = ViT(ViTConfig.tiny_test(patch_size=8, dtype=f32), use_kernel=False)
+        vit = vit.init_random_(torch.Generator().manual_seed(0)).to(device)
+        opt = ClippedAdam(vit.parameters(), lr, weight_decay=1e-4)
+        vit.chunk = tpv.make_train_chunk(tpv._make_apply(vit), opt, 6, 3, vpr_hw, 0.08, 0.08,
+                                         parallax=True, device=device)
+        return vit
+
+    cases = [
+        ("MatcherTrainer", matcher, lambda t, d: t.step(None, pair_draws.to(d))[0]),
+        ("LoFTRTrainer", loftr, lambda t, d: t.step(None, pair_draws.to(d))[0]),
+        ("SuperPointTrainer", superpoint, lambda t, d: t.step(sp_draws.to(d))[0]),
+        ("pretrain_vpr", vpr, lambda t, d: t.chunk(1, None, draws=[vpr_draws.to(d)])),
+    ]
+    for what, make, step in cases:
+        t0 = time.perf_counter()
+        fields = _parity_step(what, make, step, dev, lr)
+        log(f"14e parity {what}", t0, gpu=json.dumps(name_power), **fields)
+
+
+def phase_autograd_refusal(dev, name_power: str) -> None:
+    """14f: the kernel wrappers refuse inputs that require grad on the card,
+    and launch under torch.no_grad()."""
+    from mlis_tpu_torch.ops import attention as att
+    from mlis_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    if dev.type != "cuda":
+        log("14f autograd refusal", t0, skipped="cpu rehearsal (the CPU runs the plain versions)")
+        return
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((2, 256, 4, 64), generator=g, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    for x in (q, k, v):
+        x.requires_grad_(True)
+    for name, fn in (("flash_mha", fa.flash_mha), ("multi_head_attention", att.multi_head_attention)):
+        try:
+            fn(q, k, v)
+        except RuntimeError as e:
+            if "forward-only" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"14f: {name} on inputs that require grad did not raise")
+    before = launch_counts()
+    with torch.no_grad():
+        fa.flash_mha(q, k, v)
+        att.multi_head_attention(q, k, v)
+    sync(dev)
+    after = launch_counts()
+    if (after["flash_attention"] - before["flash_attention"],
+            after["dense_attention"] - before["dense_attention"]) != (1, 1):
+        raise AssertionError(f"14f: launches {before} -> {after} under no_grad")
+    log("14f autograd refusal", t0, gpu=json.dumps(name_power), refused="flash_mha,multi_head_attention",
+        no_grad_launches="flash_attention+1,dense_attention+1")
+
+
+def phase_pretrain(dev, args) -> None:
+    """Phase 14, outside inference mode: the four pretraining drivers at
+    their own widths (a few steps each), one tiny step of each trainer card
+    against CPU, then the autograd refusal of the kernel wrappers. No kernel
+    may launch in 14a-14e: every trainer runs the plain attention."""
+    import tempfile
+
+    name_power = gpu_name_and_power() if dev.type == "cuda" else "cpu rehearsal"
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_pretrain_matchers(dev, tmp, name_power)
+        phase_pretrain_superpoint(dev, tmp, name_power)
+        phase_pretrain_vpr(dev, tmp, name_power)
+    phase_pretrain_parity(dev, name_power)
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"phase 14a-14e launched a kernel: {counts}")
+    phase_autograd_refusal(dev, name_power)
+    log("14 pretraining", t0, gpu=json.dumps(name_power), launches_14a_14e=json.dumps(
+        counts, separators=(",", ":")))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -3233,6 +3763,8 @@ def main() -> int:
         families = phase_model_families(dev, args)
     # the trainer differentiates: phase 13 enters inference mode itself
     parallel = phase_parallel(dev, args)
+    # the pretraining drivers differentiate too
+    phase_pretrain(dev, args)
     signal.alarm(0)
     print(f"[total] {time.perf_counter() - t_all:.3f}s", flush=True)
     if dev.type != "cuda":

@@ -39,7 +39,11 @@ import torch
 from mlis_tpu_torch.eval.semantic_eval import LoopClosureMetrics
 from mlis_tpu_torch.ops.image import resize_nhwc
 from mlis_tpu_torch.ops.knn import cosine_topk
-from mlis_tpu_torch.train.matcher_trainer import (
+from mlis_tpu_torch.train.matcher_trainer import (  # noqa: F401 (the scene tests' helpers)
+    Draws,
+    _blob_mask,
+    _plane_homography,
+    _rotation_matrix,
     draw_homography_jitter,
     draw_texture_noise,
     random_homography,
@@ -49,7 +53,6 @@ from mlis_tpu_torch.train.matcher_trainer import (
 )
 
 RENDER_CHUNK = 32  # frames warped at once by the v2 render step
-QUANTILE_CHUNK = 64  # masks thresholded at once (torch.quantile caps its input at 2^24)
 
 
 @dataclass
@@ -71,19 +74,10 @@ def _generator(seed: int, generator: Optional[torch.Generator], device) -> torch
     return generator if generator is not None else torch.Generator(device=device).manual_seed(seed)
 
 
-class _Draws:
-    def to(self, device) -> "_Draws":
-        """The same draws on ``device`` (so one draw renders anywhere)."""
-        def move(v):
-            return [x.to(device) for x in v] if isinstance(v, list) else v.to(device)
-
-        return type(self)(**{f.name: move(getattr(self, f.name)) for f in dataclasses.fields(self)})
-
-
 # -- v1: one homography per revisit ------------------------------------------------
 
 @dataclass
-class SceneDrawsV1(_Draws):
+class SceneDrawsV1(Draws):
     tex_grids: List[torch.Tensor]  # U[0, 1) block noise of the P textures, per scale
     tex_gains: torch.Tensor  # (P, 2) N(0, 1) ramp gains
     corners: torch.Tensor  # (N, 4, 2) U[0, 1) corner draws
@@ -151,43 +145,8 @@ def make_quality_scene(n_places: int = 8, hw: Tuple[int, int] = (270, 360),
 
 # -- v2: layered planes under two camera poses -------------------------------------
 
-def _rotation_matrix(angles: torch.Tensor) -> torch.Tensor:
-    """Rz(yaw) @ Ry(pitch) @ Rx(roll) from (..., 3) (roll, pitch, yaw) radians."""
-    c, s = torch.cos(angles), torch.sin(angles)
-    one, zero = torch.ones_like(c[..., 0]), torch.zeros_like(c[..., 0])
-
-    def mat(*rows):
-        return torch.stack([torch.stack(r, -1) for r in rows], -2)
-
-    Rx = mat((one, zero, zero), (zero, c[..., 0], -s[..., 0]), (zero, s[..., 0], c[..., 0]))
-    Ry = mat((c[..., 1], zero, s[..., 1]), (zero, one, zero), (-s[..., 1], zero, c[..., 1]))
-    Rz = mat((c[..., 2], -s[..., 2], zero), (s[..., 2], c[..., 2], zero), (zero, zero, one))
-    return Rz @ Ry @ Rx
-
-
-def _plane_homography(K, Kinv, R, t, depth: float) -> torch.Tensor:
-    """View-0 -> view-1 homography of the fronto-parallel plane z = depth
-    under X1 = R X0 + t: H = K (R + t n^T / d) K^-1, batched over R, t."""
-    n = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=R.device)
-    return K @ (R + t[..., :, None] * n / depth) @ Kinv
-
-
-def _blob_mask(u: torch.Tensor, H: int, W: int, coverage: float, block: int = 40) -> torch.Tensor:
-    """(..., H // block + 2, W // block + 2) U[0, 1) block noise -> (..., H, W)
-    binary support masks covering ~coverage of the frame: the noise is
-    upsampled to blocks and thresholded at its 1 - coverage quantile
-    (linear, as jnp.quantile)."""
-    lead = u.shape[:-2]
-    g = u.reshape(-1, *u.shape[-2:])
-    up = g.repeat_interleave(block, 1).repeat_interleave(block, 2)[:, :H, :W].reshape(g.shape[0], -1)
-    thr = torch.cat([torch.quantile(up[s : s + QUANTILE_CHUNK], 1.0 - coverage, dim=1,
-                                    interpolation="linear")
-                     for s in range(0, up.shape[0], QUANTILE_CHUNK)])
-    return (up >= thr[:, None]).to(torch.float32).reshape(*lead, H, W)
-
-
 @dataclass
-class SceneDrawsV2(_Draws):
+class SceneDrawsV2(Draws):
     fam_grids: List[torch.Tensor]  # texture families, P * L textures
     fam_gains: torch.Tensor
     uni_grids: List[torch.Tensor]  # per-floor uniqueness, F * P * L textures

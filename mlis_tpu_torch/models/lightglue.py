@@ -186,9 +186,12 @@ class MatcherNet(nn.Module):
         else:
             self.matchability = Dense(cfg.dim, 1, dtype=torch.float32)
 
-    def forward(self, d0, c0, m0, d1, c1, m1, image_hw):
+    def forward(self, d0, c0, m0, d1, c1, m1, image_hw, return_matchability: bool = False):
         """d: (B, K, Dd) descriptors, c: (B, K, 2) coords, m: (B, K) masks ->
-        scores (B, K0, K1)."""
+        scores (B, K0, K1). ``return_matchability`` adds each keypoint's
+        matchable probability, (mp0 (B, K0), mp1 (B, K1)): the sigmoid
+        matchability for dual softmax, 1 - the dustbin mass for Sinkhorn
+        (the training loss supervises unmatchable points with them)."""
         B, K0, K1 = d0.shape[0], d0.shape[1], d1.shape[1]
         if K0 != K1:  # pad the smaller stream with masked slots
             K = max(K0, K1)
@@ -212,15 +215,23 @@ class MatcherNet(nn.Module):
         mask2d = m0[:, :, None] & m1[:, None, :]
         if self.cfg.assignment == "sinkhorn":
             with record_function("superglue.sinkhorn"):
-                sim = sim.masked_fill_(~mask2d, -1e9)  # in place: B x K x K float32
+                # in place (B x K x K float32): the division saved nothing
+                # that autograd needs, so the backward pass is unaffected
+                sim = sim.masked_fill_(~mask2d, -1e9)
                 log_p = sinkhorn_with_dustbin(sim, self.dustbin, self.cfg.sinkhorn_iterations)
                 del sim
-                return torch.exp(log_p[:, :-1, :-1])[:, :K0, :K1]
+                scores = torch.exp(log_p[:, :-1, :-1])[:, :K0, :K1]
+                if return_matchability:
+                    return (scores, 1.0 - torch.exp(log_p[:, :-1, -1])[:, :K0],
+                            1.0 - torch.exp(log_p[:, -1, :-1])[:, :K1])
+                return scores
         z0 = self.matchability(f0)[..., 0]
         z1 = self.matchability(f1)[..., 0]
         sim_m = torch.where(mask2d, sim, torch.full_like(sim, -1e30))
         p = torch.softmax(sim_m, dim=2) * torch.softmax(sim_m, dim=1)
         scores = p * torch.sigmoid(z0)[:, :, None] * torch.sigmoid(z1)[:, None, :]
+        if return_matchability:
+            return scores[:, :K0, :K1], torch.sigmoid(z0)[:, :K0], torch.sigmoid(z1)[:, :K1]
         return scores[:, :K0, :K1]
 
 

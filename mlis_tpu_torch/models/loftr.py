@@ -571,6 +571,18 @@ class LoFTR(BaseFeatureMatcher):
         net = OfficialLoFTRMatcher if self.cfg.official else LoFTRNet
         self.net = net(self.cfg).to(self.device).eval()
 
+    @torch.no_grad()
+    def init_random_(self, seed: int = 0) -> "LoFTR":
+        """Every Dense and Conv drawn with flax's initialisers (lecun-normal
+        kernels, zero biases, LayerNorm ones and zeros) from
+        ``torch.Generator().manual_seed(seed)``; the global RNG is left alone."""
+        from mlis_tpu_torch.models.layers import flax_init_
+
+        self.net.cpu()
+        flax_init_(self.net, torch.Generator().manual_seed(int(seed)))
+        self.net.to(self.device)
+        return self
+
     def load_torch_state_dict(self, state_dict, shape=(64, 64)) -> None:
         """Load an official LoFTR checkpoint (kornia / zju3dv indoor or
         outdoor ds): a flat module state dict or the lightning layout

@@ -64,10 +64,9 @@ class SuperPointNet(nn.Module):
         self.desc_conv = Conv(in_ch, 256, 3, padding=1, dtype=dt)
         self.desc_out = Conv(256, cfg.descriptor_dim, 1, dtype=dt)
 
-    def forward(self, images: torch.Tensor):
-        """images: (B, H, W, 1) grayscale in [0, 1], H and W divisible by 8.
-
-        Returns (heatmap (B, H, W) float32, desc_map (B, H/8, W/8, D) float32)."""
+    def _heads(self, images: torch.Tensor):
+        """The VGG trunk and both heads: (detector logits (B, 65, hc, wc) in
+        the compute dtype, desc_map (B, hc, wc, D) float32, L2-normalised)."""
         x = images.permute(0, 3, 1, 2)
         for stage in range(4):
             for i in range(2):
@@ -75,14 +74,29 @@ class SuperPointNet(nn.Module):
             if stage < 3:
                 x = F.max_pool2d(x, 2, stride=2)
         det = self.det_out(F.relu(self.det_conv(x)))
+        desc = self.desc_out(F.relu(self.desc_conv(x))).to(torch.float32)
+        desc = desc.permute(0, 2, 3, 1)
+        desc = desc / (torch.linalg.vector_norm(desc, dim=-1, keepdim=True) + 1e-8)
+        return det, desc
+
+    def forward(self, images: torch.Tensor):
+        """images: (B, H, W, 1) grayscale in [0, 1], H and W divisible by 8.
+
+        Returns (heatmap (B, H, W) float32, desc_map (B, H/8, W/8, D) float32)."""
+        det, desc = self._heads(images)
         prob = torch.softmax(det.to(torch.float32), dim=1)[:, :64]  # (B, 64, hc, wc)
         B, _, hc, wc = prob.shape
         heat = prob.permute(0, 2, 3, 1).reshape(B, hc, wc, 8, 8)
         heat = heat.permute(0, 1, 3, 2, 4).reshape(B, hc * 8, wc * 8)
-        desc = self.desc_out(F.relu(self.desc_conv(x))).to(torch.float32)
-        desc = desc.permute(0, 2, 3, 1)
-        desc = desc / (torch.linalg.vector_norm(desc, dim=-1, keepdim=True) + 1e-8)
         return heat, desc
+
+    def raw_head(self, images: torch.Tensor):
+        """The heads before the detector softmax, for training: (logits (B,
+        hc, wc, 65) in the compute dtype, desc_map (B, hc, wc, D) float32,
+        L2-normalised), what the JAX package's SuperPointTrainer captures
+        from ``det_out`` and ``desc_out``."""
+        det, desc = self._heads(images)
+        return det.permute(0, 2, 3, 1), desc
 
 
 def nms_heatmap(heat: torch.Tensor, radius: int = 4) -> torch.Tensor:
@@ -136,6 +150,18 @@ class SuperPoint:
     def load_state(self, state_dict) -> None:
         self.net.load_state_dict(state_dict, strict=True)
         self.net.to(self.device)
+
+    @torch.no_grad()
+    def init_random_(self, seed: int = 0) -> "SuperPoint":
+        """The filters drawn with flax's initialisers (lecun-normal kernels,
+        zero biases) from ``torch.Generator().manual_seed(seed)``; the
+        global RNG is left alone."""
+        from mlis_tpu_torch.models.layers import flax_init_
+
+        self.net.cpu()
+        flax_init_(self.net, torch.Generator().manual_seed(int(seed)))
+        self.net.to(self.device)
+        return self
 
     @torch.no_grad()
     def detect(self, images: torch.Tensor) -> Keypoints:

@@ -29,7 +29,13 @@ from typing import Optional
 
 import torch
 
-from mlis_tpu_torch.ops.flash_attention import DTYPE_CODES, bh_slices, flash_mha, prepare_launch
+from mlis_tpu_torch.ops.flash_attention import (
+    DTYPE_CODES,
+    bh_slices,
+    flash_mha,
+    prepare_launch,
+    refuse_autograd,
+)
 
 VMEM_SCORE_BUDGET = 4 * 1024 * 1024  # bytes of the (S, T) float32 score tile
 
@@ -72,6 +78,7 @@ def _launch_dense(q, k, v, bias) -> torch.Tensor:
     optional bias read in place; returns a contiguous (B, S, H, Dh) output."""
     from mlis_tpu_torch import _build
 
+    refuse_autograd("dense_attention", q, k, v, bias)
     out, strides = prepare_launch(q, k, v, "fused_attention")
     B, S, H, Dh = q.shape
     T = k.shape[1]

@@ -21,7 +21,9 @@ with a one-shot softmax, in slices of ``bh`` that keep the (S, T) float32
 scores under 256 MiB. Layouts are the JAX package's: (BH, S, Dh) here,
 (B, S, H, Dh) at :func:`flash_mha`. The kernel itself takes (B, L, H, Dh)
 views with any strides that its TMA loads accept (:func:`check_views`), so
-neither wrapper copies q, k, v or the output on CUDA.
+neither wrapper copies q, k, v or the output on CUDA. The kernels are
+forward-only: on tensors that require grad, with autograd on, the launch
+raises (:func:`refuse_autograd`) instead of cutting the gradient.
 """
 
 from __future__ import annotations
@@ -69,6 +71,17 @@ def flash_attention_plain(
         acc = torch.matmul(p.to(v.dtype).float(), v[sl].float())
         out[sl] = (acc / l.clamp_min(1e-20)).to(q.dtype)
     return out
+
+
+def refuse_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when autograd is on and any of ``tensors`` requires grad. The
+    CUDA kernels are forward-only (no backward is written, as the Pallas
+    kernels have no VJP): their output would carry no ``grad_fn``, and the
+    gradient to q, k, v (or the bias) would be cut without a word."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel is forward-only and has no backward; "
+                           f"call it under torch.no_grad() or run the plain version "
+                           f"(use_kernel=False) to differentiate")
 
 
 def check_views(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> None:
@@ -124,6 +137,7 @@ def _launch_flash(q, k, v, kv_len) -> torch.Tensor:
     (B * H,) int32 or None; returns a contiguous (B, S, H, Dh) output."""
     from mlis_tpu_torch import _build
 
+    refuse_autograd("flash_attention", q, k, v)
     out, strides = prepare_launch(q, k, v, "flash_attention")
     B, S, H, Dh = q.shape
     T = k.shape[1]

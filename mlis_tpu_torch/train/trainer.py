@@ -13,9 +13,10 @@ descriptors are all-gathered (differentiably) and every rank computes the
 loss of the GLOBAL batch; the gradients are then summed over ``data``. The
 step equals the single-device step on the global batch, up to rounding.
 
-The optimiser is ``torch.optim.AdamW`` with ``optax.adamw``'s settings:
-betas (0.9, 0.999), eps 1e-8 outside the square root, decoupled weight
-decay (1e-4 by default, on every parameter).
+The optimiser is ``torch.optim.AdamW`` with ``optax.adamw``'s settings
+(``train/optim.py``'s ``ADAM_SETTINGS``: betas (0.9, 0.999), eps 1e-8
+outside the square root), decoupled weight decay (1e-4 by default, on every
+parameter) and no clipping, as the reference's bare ``optax.adamw``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from mlis_tpu_torch.parallel.mesh import (
     make_mesh,
     tensor_parallelize,
 )
+from mlis_tpu_torch.train.optim import ADAM_SETTINGS
 
 
 def nt_xent_loss(
@@ -117,8 +119,7 @@ class VPRTrainer:
         self.encoder = tensor_parallelize(copy.deepcopy(encoder).to(self.device).train(),
                                           self.mesh)
         self.optimizer = torch.optim.AdamW(self.encoder.parameters(), lr=learning_rate,
-                                           betas=(0.9, 0.999), eps=1e-8,
-                                           weight_decay=weight_decay)
+                                           weight_decay=weight_decay, **ADAM_SETTINGS)
         self.data_group = self.mesh.get_group(DATA_AXIS)
         self._step_fn = make_train_step(self.encoder, self.optimizer, self.data_group)
         self.step = 0

@@ -218,7 +218,9 @@ def to_jax_params(state: Dict[str, torch.Tensor],
             name = "/".join([parts[0], *parts[2:-1], leaf])
             layers.setdefault(name, {})[int(parts[1])] = v
         else:
-            flat["/".join([*parts[:-1], leaf])] = np.ascontiguousarray(v)
+            # reshape: np.ascontiguousarray turns a 0-d leaf (SuperGlue's
+            # dustbin) into shape (1,)
+            flat["/".join([*parts[:-1], leaf])] = np.ascontiguousarray(v).reshape(v.shape)
     for name, by_layer in layers.items():
         flat[name] = np.stack([by_layer[i] for i in range(len(by_layer))])
     return unflatten_params(flat)
@@ -285,7 +287,8 @@ def from_jax_params(
                 out[name] = torch.from_numpy(np.ascontiguousarray(arr))
         else:
             leaf, arr = _convert_leaf(parts[-1], v)
-            out[".".join([*parts[:-1], leaf])] = torch.from_numpy(np.ascontiguousarray(arr))
+            out[".".join([*parts[:-1], leaf])] = torch.from_numpy(
+                np.ascontiguousarray(arr).reshape(np.shape(arr)))
     return out
 
 

@@ -175,8 +175,9 @@ def test_gate_matches_mlis_tpu(strict):
 
 def test_port_runs_without_jax_or_mlis_tpu():
     """Every module of mlis_tpu_torch imports, and the sweep, the gate paths,
-    the pose-graph demo and two trainer steps run, with jax, flax, optax and
-    orbax absent and any mlis_tpu import refused."""
+    the pose-graph demo, two VPR trainer steps and one MatcherTrainer step
+    run, with jax, flax, optax and orbax absent and any mlis_tpu import
+    refused."""
     code = textwrap.dedent("""
         import sys
         for banned in ("jax", "flax", "optax", "orbax"):
@@ -204,7 +205,12 @@ def test_port_runs_without_jax_or_mlis_tpu():
                 "mlis_tpu_torch.parallel.mesh", "mlis_tpu_torch.parallel.distributed_knn",
                 "mlis_tpu_torch.parallel.sharded_gate", "mlis_tpu_torch.parallel.scaling",
                 "mlis_tpu_torch.utils.flops", "mlis_tpu_torch.train.trainer",
-                "mlis_tpu_torch.train.vpr_finetune_demo"} <= set(names), names
+                "mlis_tpu_torch.train.vpr_finetune_demo", "mlis_tpu_torch.train.optim",
+                "mlis_tpu_torch.train.matcher_trainer", "mlis_tpu_torch.train.driver",
+                "mlis_tpu_torch.train.pretrain_matcher", "mlis_tpu_torch.train.loftr_trainer",
+                "mlis_tpu_torch.train.pretrain_loftr", "mlis_tpu_torch.train.superpoint_trainer",
+                "mlis_tpu_torch.train.pretrain_superpoint",
+                "mlis_tpu_torch.train.pretrain_vpr"} <= set(names), names
         from mlis_tpu_torch.ops.pairwise import candidate_counts, candidate_counts_host
         from mlis_tpu_torch.gating.place_recognition import _build_vpr, process_image_sequence
         rng = np.random.default_rng(0)
@@ -269,6 +275,14 @@ def test_port_runs_without_jax_or_mlis_tpu():
                              use_kernel=False))
         trainer = VPRTrainer(enc, device="cpu")  # a one-rank gloo group
         assert all(np.isfinite(trainer.train_batch(imgs, ids)) for _ in range(2))
+        from mlis_tpu_torch.models.lightglue import LightGlue, MatcherConfig
+        from mlis_tpu_torch.models.superpoint import SuperPointConfig
+        from mlis_tpu_torch.train.matcher_trainer import MatcherTrainer, draw_textures
+        lg = LightGlue(SuperPointConfig.tiny_test(max_keypoints=32), MatcherConfig.tiny_test(),
+                       device="cpu").init_random_(0)
+        tex = draw_textures(2, 64, 96, torch.Generator().manual_seed(1), "cpu").numpy()
+        loss, n_gt = MatcherTrainer(lg, (64, 96), seed=0).train_batch(tex)
+        assert np.isfinite(loss) and n_gt >= 0
         assert not any(m in ("jax", "optax", "orbax", "mlis_tpu")
                        or m.startswith(("jax.", "optax.", "orbax.", "mlis_tpu."))
                        for m, v in sys.modules.items() if v is not None)
