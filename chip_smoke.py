@@ -195,6 +195,31 @@ Phases, one line each as they end:
    ``multi_head_attention`` raise on inputs that require grad and launch
    under ``torch.no_grad()``. The CPU rehearsal runs (a)-(d) with
    ``--tiny`` and without the two full backbones.
+15. the IO path, under inference mode, in a temporary directory (nothing
+   under results/): (a) phase 10's 240,000 IMU samples (stamps from
+   1.7e9), a 12,000-message 10 Hz odometry track and 300 of its OS-128
+   scans (the 30 s around the first ride; 48-byte Ouster points) written
+   with ``BagWriter`` (about 1.9 GB, uncompressed chunks); ``info`` and
+   the three extractions timed with the native runtime required (g++,
+   built on first use into build/mlis_tpu_torch/), each stream equal to
+   what was written, then the IMU detector and the LiDAR tracker on the
+   card from the bag's streams and from phase 10's arrays with the same
+   RANSAC draws: events, labels and planes identical; (b) ~64 MB of the
+   IMU and odometry records through lz4 and bz2 chunks, read back equal;
+   (c) the CLI in-process, launch counters set to 0 before each call:
+   ``bag info`` / ``odom-tum`` / ``imu-plot``, the pipeline on the bag's
+   TUM file and a whitespace IMU table (its two figures), ``fullgate`` on
+   its synthetic scene with MixVPR and with CricaVPR (dense launches
+   required), ``stream``, ``calib generate``, and ``all`` over phase 11's
+   traversal plus a droid_slam copy (three K1 launches, every figure).
+   Where matplotlib (or yaml) is not installed, as on the card's machine,
+   each call that needs it must raise ModuleNotFoundError naming it and is
+   reported as not run: the pipeline then runs main's steps before its
+   figures, and ``gate`` + ``evaluate`` over the same tree stand in for
+   ``all`` (the same three K1 launches);
+   (d) ``utils.roofline`` over phase 3's profiled stage spans against the
+   H100's peaks. Rehearse it alone on the CPU (a few minutes):
+   ``python -c "import argparse, torch, chip_smoke as c; torch.inference_mode().__enter__(); c.phase_io(torch.device('cpu'), argparse.Namespace(scans=600, io_scans=100, io_fullgate_frames=32), {'spans': {}})"``.
 Phases 5, 6, 8, 9 and 12a run like phase 3 (warm-up, three timed runs, one
 profiled run), with every launch counter set to 0 before each run.
 
@@ -210,6 +235,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -764,17 +790,19 @@ STAGES = ("gate.detect", "gate.encode", "gate.retrieval", "lightglue.match", "su
           "train.pairs", "train.forward", "train.backward", "train.update")
 
 
-def profile_gate(dev, pipe, inputs, gen, best_wall: float, encode_batch_size: int = 128) -> None:
+def profile_gate(dev, pipe, inputs, gen, best_wall: float, encode_batch_size: int = 128) -> dict:
     """One more gate run under torch.profiler (see :func:`profile_run`)."""
     images, timestamps, floors, K = inputs
-    profile_run(dev, lambda: pipe.process(images, timestamps, floors, K,
-                                          encode_batch_size=encode_batch_size, generator=gen),
-                best_wall)
+    return profile_run(dev, lambda: pipe.process(images, timestamps, floors, K,
+                                                 encode_batch_size=encode_batch_size,
+                                                 generator=gen),
+                       best_wall)
 
 
-def profile_run(dev, run, best_wall: float) -> None:
+def profile_run(dev, run, best_wall: float) -> dict:
     """``run()`` once under torch.profiler: device time per stage range and
-    per kernel, and the device's busy share of the run's wall time."""
+    per kernel, and the device's busy share of the run's wall time. Returns
+    the device seconds of each stage range."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -801,6 +829,7 @@ def profile_run(dev, run, best_wall: float) -> None:
         f"{k}={v / 1e6:.4f}" for k, v in spans.items()), flush=True)
     for name, us in sorted(by_kernel.items(), key=lambda x: -x[1])[:15]:
         print(f"  profile kernel {us / 1e6:.4f}s {name[:110]}", flush=True)
+    return {k: v / 1e6 for k, v in spans.items()}
 
 
 def phase_main_path(dev, args, expected_sweep) -> dict:
@@ -852,9 +881,10 @@ def phase_main_path(dev, args, expected_sweep) -> dict:
     if analysis.total_candidates != expected_sweep[0] or \
             analysis.same_floor_candidates != expected_sweep[1]:
         raise AssertionError(f"sweep {analysis} disagrees with phase 2's plain version")
+    spans = {}
     if dev.type == "cuda":
         pipe.spr.vpr.descriptors = []
-        profile_gate(dev, pipe, (images, timestamps, floors, K), gen, best_wall)
+        spans = profile_gate(dev, pipe, (images, timestamps, floors, K), gen, best_wall)
     name = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu rehearsal"
     counts = launch_counts()
     launches = counts["tri_count"]
@@ -866,7 +896,13 @@ def phase_main_path(dev, args, expected_sweep) -> dict:
         raise AssertionError("the main path did not launch kernel K1")
     if counts["flash_attention"] or counts["dense_attention"]:
         raise AssertionError(f"the bench-protocol gate reached an attention kernel: {counts}")
-    return {"launches": launches}
+    # what phase 15d's roofline needs: the profiled stage spans and the shapes
+    return {"launches": launches, "spans": spans, "keyframes": len(images),
+            "hw": images.shape[1:3], "verified": best.verified, "wall_s": best_wall,
+            "vpr_input": tuple(pipe.spr.vpr.input_size), "descriptor_dim":
+            int(pipe.spr.vpr.descriptor_dim), "top_k": pipe.top_k, "max_keypoints": 1024,
+            "match_top_k": pipe.match_top_k, "matcher": pipe.verifier.matcher.cfg,
+            "hypotheses": pipe.num_hypotheses}
 
 
 def reset_launch_counts() -> None:
@@ -3721,6 +3757,483 @@ def phase_pretrain(dev, args) -> None:
         counts, separators=(",", ":")))
 
 
+# -- phase 15: the IO path, the rest of the CLI, and the H100 roofline -------------
+
+ROS_EPOCH = 1.7e9  # absolute ROS stamps (and a step coarse enough that k/200 s survives sec/nsec)
+IO_SCANS = 300  # of the traversal's 12,000 scans: 30 s of phase 10's bag around its first ride
+ODOM_RATE, ODOM_MESSAGES = 10.0, 12_000  # /aft_mapped_to_init over phase 10's 1,200 s
+CODEC_IMU = 150_000  # 15b: the first 150,000 IMU records and every odometry record, ~64 MB
+OUSTER_STEP, OUSTER_RING_OFF = 48, 26  # OS-128 PointCloud2: x/y/z float32 at 0/4/8, uint16 ring
+OUSTER_FIELDS = (("x", 0, 7, 1), ("y", 4, 7, 1), ("z", 8, 7, 1), ("ring", OUSTER_RING_OFF, 4, 1))
+IO_TOPICS = {"imu": "/vectornav/imu", "odom": "/aft_mapped_to_init", "lidar": "/ouster/points"}
+IO_GATES = ("fullgate_mixvpr", "fullgate_cricavpr")  # 15c's calls that reach attention kernels
+
+
+def ouster_blob(xyz: np.ndarray, ring: np.ndarray) -> bytes:
+    """One scan in the Ouster PointCloud2 layout (48-byte points)."""
+    buf = np.zeros((len(xyz), OUSTER_STEP), np.uint8)
+    buf[:, :12] = np.ascontiguousarray(xyz, np.float32).view(np.uint8)
+    buf[:, OUSTER_RING_OFF:OUSTER_RING_OFF + 2] = ring.astype(np.uint16)[:, None].view(np.uint8)
+    return buf.tobytes()
+
+
+def io_traversal(dev, args):
+    """Phase 10's inputs (the same torch.Generator(0) draws in the same
+    order): the 240,000 IMU samples with the four rides and the OS-128
+    scans, cut to args.io_scans scans around the first ride, plus a 10 Hz
+    odometry track on the loop with the floors' heights. Stamps are
+    absolute (ROS_EPOCH + t)."""
+    from mlis_tpu_torch.gating.lidar_floor_tracker import LiDARFloorTracker
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rides = ride_windows(args.scans)
+    t, ax, ay, az, gyro = imu_stream(dev, gen, rides)
+    points, ring, scan_t = lidar_bag(dev, gen, args.scans, rides)
+    n_io = args.io_scans
+    first = int(rides[0][0] * LIDAR_RATE)
+    s0 = min(max(first - n_io // 2, 0), args.scans - n_io)
+    points = points[s0 : s0 + n_io].clone()
+
+    odo_t = np.arange(ODOM_MESSAGES) / ODOM_RATE
+    odo_pos = loop_positions(gen, dev, ODOM_MESSAGES)
+    odo_pos[:, 2] += FLOOR_HEIGHT_M * (simulated_floor(odo_t, rides) - START_FLOOR)
+    iters = LiDARFloorTracker(device=dev).ransac_iterations
+    u = torch.rand((n_io, iters, 3), generator=gen, device=dev)
+    return {
+        "rides": rides, "imu_t": ROS_EPOCH + t, "accel": torch.stack([ax, ay, az], 1).double(),
+        "gyro": gyro.double(), "points": points, "ring": ring, "scan_t": ROS_EPOCH + scan_t[
+            s0 : s0 + n_io], "odo_t": ROS_EPOCH + odo_t, "odo_pos": odo_pos, "uniforms": u,
+        "first_scan": s0,
+    }
+
+
+def write_io_bag(path: str, tr: dict, imu_n=None, with_points: bool = True,
+                 compression: str = "none") -> dict:
+    """The traversal as a ROS bag: IMU at 200 Hz, odometry at 10 Hz, and
+    (with_points) the OS-128 scans in the Ouster layout."""
+    from mlis_tpu_torch.core.bag import (
+        BagWriter,
+        PointField,
+        encode_imu,
+        encode_odometry,
+        encode_pointcloud2,
+    )
+
+    w = BagWriter(path)
+    accel, gyro = tr["accel"].cpu().numpy(), tr["gyro"].cpu().numpy()
+    n_imu = len(tr["imu_t"]) if imu_n is None else imu_n
+    for i in range(n_imu):
+        t = tr["imu_t"][i]
+        w.write(IO_TOPICS["imu"], "sensor_msgs/Imu", t, encode_imu(t, accel[i], gyro[i]))
+    quat = [0.0, 0.0, 0.0, 1.0]
+    for t, p in zip(tr["odo_t"], tr["odo_pos"]):
+        w.write(IO_TOPICS["odom"], "nav_msgs/Odometry", t, encode_odometry(t, p, quat))
+    n_pts = 0
+    if with_points:
+        fields = [PointField(*f) for f in OUSTER_FIELDS]
+        ring = tr["ring"].cpu().numpy()
+        for t, xyz in zip(tr["scan_t"], tr["points"].cpu().numpy()):
+            w.write(IO_TOPICS["lidar"], "sensor_msgs/PointCloud2", t,
+                    encode_pointcloud2(t, ouster_blob(xyz, ring), OUSTER_STEP, fields))
+            n_pts += 1
+    w.close(compression=compression)
+    return {"imu": n_imu, "odom": len(tr["odo_t"]), "lidar": n_pts}
+
+
+def phase_io_bag(dev, args, tmp: str, name_power: str) -> dict:
+    """15a: write the traversal's bag, time info and the three extractions
+    (native runtime required), then label the extracted streams on the card
+    and hold them equal to phase 10's arrays fed directly."""
+    from mlis_tpu_torch.core.bag import (
+        BagReader,
+        extract_imu,
+        extract_odometry_tum,
+        extract_pointclouds,
+    )
+    from mlis_tpu_torch.gating.floor_detector import IMUFloorDetector
+    from mlis_tpu_torch.gating.lidar_floor_tracker import LiDARFloorTracker
+    from mlis_tpu_torch.runtime.native import native_available
+
+    t0 = time.perf_counter()
+    if not native_available():
+        raise AssertionError("15a: the native runtime did not build (g++ -O3 -shared)")
+    tr = io_traversal(dev, args)
+    n_io = len(tr["scan_t"])
+    path = os.path.join(tmp, "traversal.bag")
+    free = shutil.disk_usage(tmp).free
+    tw = time.perf_counter()
+    written = write_io_bag(path, tr)
+    size = os.path.getsize(path)
+    log("15a bag written", t0, path_fs_free_bytes=free, bag_bytes=size,
+        write_s=f"{time.perf_counter() - tw:.3f}", messages=json.dumps(written),
+        reduced=json.dumps(f"{n_io} of the traversal's 12,000 OS-128 scans (scans "
+                           f"{tr['first_scan']}-{tr['first_scan'] + n_io - 1} of phase 10's "
+                           f"bag, around its first ride)"), gpu=json.dumps(name_power))
+
+    rates = {}
+
+    def timed(name, fn, messages):
+        t1 = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t1
+        rates[name] = dt
+        print(f"  15a {name} s={dt:.4f} MB_per_s={size / dt / 1e6:.1f} "
+              f"messages_per_s={messages / dt:.1f} messages={messages}", flush=True)
+        return out
+
+    info = timed("info", lambda: BagReader(path).info(), sum(written.values()))
+    imu = timed("extract_imu", lambda: extract_imu(path), written["imu"])
+    tum = timed("extract_odometry_tum", lambda: extract_odometry_tum(path, [IO_TOPICS["odom"]]),
+                written["odom"])
+    scans = timed("extract_pointclouds", lambda: list(extract_pointclouds(path)), written["lidar"])
+    if info["message_counts"] != {IO_TOPICS[k]: v for k, v in written.items()}:
+        raise AssertionError(f"15a info: {info['message_counts']} vs written {written}")
+    accel, gyro = tr["accel"].cpu().numpy(), tr["gyro"].cpu().numpy()
+    if not (np.array_equal(imu[0], tr["imu_t"]) and np.array_equal(imu[1], accel)
+            and np.array_equal(imu[2], gyro)):
+        raise AssertionError("15a: the bag's IMU stream differs from phase 10's arrays")
+    if not (np.array_equal(tum[:, 0], tr["odo_t"]) and np.array_equal(tum[:, 1:4], tr["odo_pos"])):
+        raise AssertionError("15a: the bag's odometry differs from the written track")
+    pts = np.stack([xyz for _, xyz, _ in scans])
+    rings = np.stack([r for _, _, r in scans])
+    if not (np.array_equal(pts, tr["points"].cpu().numpy()) and
+            (rings == tr["ring"].cpu().numpy()[None]).all()):
+        raise AssertionError("15a: the bag's point clouds differ from phase 10's scans")
+
+    # labels from the bag against phase 10's arrays fed directly, on the card
+    def label(t, a, points, ring_ids, stamps):
+        sync(dev)
+        t1 = time.perf_counter()
+        det = IMUFloorDetector(device=dev)
+        events = det.detect_elevator_events(t, a[:, 0], a[:, 1], a[:, 2])
+        labels = det.assign_floor_labels(tr["odo_t"], start_floor=START_FLOOR)
+        ests = LiDARFloorTracker(device=dev).process_scans(points, stamps, ring_ids,
+                                                           uniforms=tr["uniforms"])
+        sync(dev)
+        return events, labels, ests, time.perf_counter() - t1
+
+    reset_launch_counts()
+    direct = label(tr["imu_t"], tr["accel"].float(), tr["points"],
+                   tr["ring"].expand(n_io, -1), tr["scan_t"])
+    from_bag = label(imu[0], torch.as_tensor(imu[1], device=dev).float(),
+                     torch.as_tensor(pts, device=dev), torch.as_tensor(rings, device=dev),
+                     np.asarray([s for s, _, _ in scans]))
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"15a labelling launched a kernel: {counts}")
+    ev = lambda e: [(x.start_idx, x.end_idx, x.direction, x.start_time, x.end_time) for x in e]
+    fe = lambda e: [(x.timestamp, x.z_height, x.floor_number, x.confidence, x.num_ground_points)
+                    for x in e]
+    if ev(direct[0]) != ev(from_bag[0]) or not np.array_equal(direct[1], from_bag[1]) or \
+            fe(direct[2]) != fe(from_bag[2]):
+        raise AssertionError("15a: labels from the bag differ from phase 10's arrays")
+    check_events(direct[0], [(a + ROS_EPOCH, b + ROS_EPOCH, r) for a, b, r in tr["rides"]],
+                 "15a IMU")
+    floors = [e.floor_number for e in from_bag[2]]
+    if len(set(floors)) != 2:
+        raise AssertionError(f"15a: the 30 s of scans should hold one ride, floors {set(floors)}")
+    io_s = rates["extract_imu"] + rates["extract_odometry_tum"] + rates["extract_pointclouds"]
+    span_imu = tr["imu_t"][-1] - tr["imu_t"][0]
+    log("15a bag io", t0, bag_bytes=size, io_s=f"{io_s:.4f}", labelling_s=f"{from_bag[3]:.4f}",
+        labelling_direct_s=f"{direct[3]:.4f}", recording_s_imu_odom=f"{span_imu:.1f}",
+        recording_s_scans=f"{n_io / LIDAR_RATE:.1f}",
+        io_share_of_recording=f"{io_s / span_imu:.5f}", events=len(from_bag[0]),
+        labels_equal=True, planes_equal=True, native_available=True)
+    return {"path": path, "tum": tum, "imu": imu, "traversal": tr, "bytes": size,
+            "seconds": rates}
+
+
+def phase_io_codecs(tmp: str, tr: dict) -> None:
+    """15b: ~64 MB of IMU and odometry records through lz4 and bz2 chunks."""
+    from mlis_tpu_torch.core import lz4f
+    from mlis_tpu_torch.core.bag import BagReader
+
+    t0 = time.perf_counter()
+    plain = os.path.join(tmp, "codec_none.bag")
+    write_io_bag(plain, tr, imu_n=CODEC_IMU, with_points=False)
+    want = [(m.topic, m.timestamp, m.data) for m in BagReader(plain).read_messages()]
+    raw = os.path.getsize(plain)
+    for comp in ("lz4", "bz2"):
+        p = os.path.join(tmp, f"codec_{comp}.bag")
+        t1 = time.perf_counter()
+        write_io_bag(p, tr, imu_n=CODEC_IMU, with_points=False, compression=comp)
+        wt = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        got = [(m.topic, m.timestamp, m.data) for m in BagReader(p).read_messages()]
+        rt = time.perf_counter() - t1
+        if got != want:
+            raise AssertionError(f"15b {comp}: messages differ after the round trip")
+        print(f"  15b {comp} raw_bytes={raw} bag_bytes={os.path.getsize(p)} write_s={wt:.4f} "
+              f"read_s={rt:.4f} read_MB_per_s={raw / rt / 1e6:.1f} messages={len(got)}", flush=True)
+        os.remove(p)
+    os.remove(plain)
+    log("15b codecs", t0, lz4_block_codec=("liblz4" if lz4f._LIB is not None
+                                           else "pure-Python decoder, stored blocks"),
+        messages_equal=True)
+
+
+def run_cli(main, argv) -> tuple:
+    """(exit code, stdout, seconds) of an in-process CLI call."""
+    buf = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t1
+
+
+def phase_io_cli(dev, args, tmp: str, bag: dict) -> dict:
+    """15c: the CLI entry points in-process on the card: bag info /
+    odom-tum / imu-plot on 15a's bag, the pipeline on its TUM file and a
+    whitespace IMU table, fullgate with MixVPR and with CricaVPR, stream,
+    calib generate, and all over phase 11's traversal (every launch counter
+    set to 0 before each call and read after it)."""
+    import importlib.util
+
+    from mlis_tpu_torch import cli
+    from mlis_tpu_torch.core.calibration import sample_kalibr_yaml
+    from mlis_tpu_torch.gating.pipeline import SemanticGatingPipeline
+    from mlis_tpu_torch.gating.pipeline import main as pipeline_main
+
+    t0 = time.perf_counter()
+    d = dev.type
+    launches = {}
+    # host libraries the figures (matplotlib) and the Kalibr loaders (yaml)
+    # need; the card's machine may lack them and nothing may be installed
+    absent = {m for m in ("matplotlib", "yaml") if importlib.util.find_spec(m) is None}
+    print(f"  15c not installed on this machine: {sorted(absent) or 'none'}", flush=True)
+
+    def refused(name, module, fn):
+        """Without ``module`` a subcommand must raise ModuleNotFoundError
+        naming it (and is reported as not run), never pass silently."""
+        try:
+            fn()
+        except ModuleNotFoundError as e:
+            if e.name != module:
+                raise
+            print(f"  15c {name}: not run on this machine ({module} is not installed)",
+                  flush=True)
+            return
+        raise AssertionError(f"15c {name} ran without {module}")
+
+    def call(name, main, argv, expect=None):
+        reset_launch_counts()
+        rc, out, sec = run_cli(main, argv)
+        sync(dev)
+        counts = launch_counts()
+        launches[name] = counts
+        print(f"  15c {name} rc={rc} s={sec:.4f} launches="
+              f"{json.dumps(counts, separators=(',', ':'))}", flush=True)
+        if rc != 0:
+            raise AssertionError(f"15c {name}: exit code {rc}\n{out[-2000:]}")
+        want = {"tri_count": 0, "flash_attention": 0, "dense_attention": 0, **(expect or {})}
+        if d == "cuda" and any(counts[k] != v for k, v in want.items() if v is not None):
+            raise AssertionError(f"15c {name}: launches {counts}, expected {want}")
+        return out, counts
+
+    def nonempty(*paths):
+        for p in paths:
+            if not os.path.exists(p) or os.path.getsize(p) == 0:
+                raise AssertionError(f"15c: {p} missing or empty")
+
+    out, _ = call("bag info", cli.main, ["bag", "info", bag["path"]])
+    if json.loads(out)["message_counts"][IO_TOPICS["lidar"]] != args.io_scans:
+        raise AssertionError("15c bag info: wrong scan count")
+    tum = os.path.join(tmp, "trajectory.txt")
+    call("bag odom-tum", cli.main, ["bag", "odom-tum", bag["path"], "--output", tum])
+    fig = os.path.join(tmp, "imu_elevator_detection.png")
+    imu_plot = ["bag", "imu-plot", bag["path"], "--output", fig, "--device", d]
+    if "matplotlib" in absent:
+        refused("bag imu-plot", "matplotlib", lambda: run_cli(cli.main, imu_plot))
+    else:
+        out, _ = call("bag imu-plot", cli.main, imu_plot)
+        nonempty(fig)
+        if not out.startswith(f"{len(RIDES)} elevator event(s)"):
+            raise AssertionError(f"15c bag imu-plot: {out}")
+
+    # the pipeline on the bag's TUM file and a whitespace IMU table (a CSV
+    # from bag imu-csv carries a header that load_imu_data refuses)
+    imu_txt = os.path.join(tmp, "imu.txt")
+    t, a, g = bag["imu"]
+    np.savetxt(imu_txt, np.column_stack([t, a, g]))
+    pipe_out = os.path.join(tmp, "pipeline")
+    pipe_argv = ["--trajectory", tum, "--imu", imu_txt, "--output", pipe_out, "--device", d]
+    if "matplotlib" in absent:
+        # main's steps up to its figures, through the same API calls
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        pipe = SemanticGatingPipeline(output_dir=pipe_out, device=d)
+        pipe.load_trajectory(tum)
+        pipe.load_imu_data(imu_txt)
+        pipe.detect_floors()
+        out = pipe.generate_report()
+        sync(dev)
+        launches["pipeline"] = launch_counts()
+        print(f"  15c pipeline (main's steps before its figures) s={time.perf_counter() - t1:.4f} "
+              f"launches={json.dumps(launches['pipeline'], separators=(',', ':'))}", flush=True)
+        refused("pipeline", "matplotlib", lambda: run_cli(pipeline_main, pipe_argv))
+    else:
+        out, _ = call("pipeline", pipeline_main, pipe_argv)
+        nonempty(os.path.join(pipe_out, "pipeline_floor_segmentation.png"),
+                 os.path.join(pipe_out, "pipeline_3d_multifloor.png"))
+    if f"Elevator events: {len(RIDES)}" not in out or f"Trajectory poses: {ODOM_MESSAGES}" not in out:
+        raise AssertionError(f"15c pipeline report: {out[-600:]}")
+
+    gates = {}
+    for vpr, expect in (("mixvpr", {"flash_attention": None}),
+                        ("cricavpr", {"flash_attention": None, "dense_attention": None})):
+        with patched(cli, "fullgate_scene", n=args.io_fullgate_frames):
+            out, counts = call(f"fullgate {vpr}", cli.main,
+                               ["fullgate", "--vpr", vpr, "--device", d], expect)
+        summ = json.loads(out)
+        gates[vpr] = {**counts, "pairs_per_sec": summ["pairs_per_sec"],
+                      "total_pairs": summ["total_pairs"], "verified": summ["verified"],
+                      "geometrically_valid": summ["geometrically_valid"]}
+        print(f"  15c fullgate {vpr} " + " ".join(f"{k}={v}" for k, v in gates[vpr].items()),
+              flush=True)
+        if summ["total_pairs"] <= 0 or summ["verified"] <= 0:
+            raise AssertionError(f"15c fullgate {vpr}: {summ}")
+    if d == "cuda" and gates["cricavpr"]["dense_attention"] < 1:
+        raise AssertionError("15c fullgate --vpr cricavpr did not launch the dense kernel")
+
+    out, _ = call("stream", cli.main, ["stream", "--device", d])
+    st = json.loads(out)
+    if st["accepted_pairs"] < st["planted_same_floor_revisits"] // 2 or \
+            st["stats"]["rejected_cross_floor"] < 1:
+        raise AssertionError(f"15c stream: {st}")
+    cams, cam_imu, imu_y = (os.path.join(tmp, f) for f in ("cams.yaml", "cam_imu.yaml",
+                                                             "imu.yaml"))
+    sample_kalibr_yaml(cams)
+    with open(cam_imu, "w") as f:
+        f.write("cam0:\n  T_cam_imu:\n  - [0.0, -1.0, 0.0, 0.05]\n  - [0.0, 0.0, -1.0, -0.03]\n"
+                "  - [1.0, 0.0, 0.0, 0.02]\n  - [0.0, 0.0, 0.0, 1.0]\n")
+    with open(imu_y, "w") as f:
+        f.write("imu0:\n  update_rate: 200.0\n")
+    cfg_dir = os.path.join(tmp, "configs")
+    generate = ["calib", "generate", "--cameras", cams, "--cam-imu", cam_imu, "--imu", imu_y,
+                "--left", "cam0", "--right", "cam1", "--output", cfg_dir]
+    if "yaml" in absent:
+        sample = os.path.join(cfg_dir, "sample.yaml")  # the one format that reads no YAML
+        call("calib sample", cli.main, ["calib", "sample", "--output", sample])
+        nonempty(sample)
+        refused("calib generate", "yaml", lambda: run_cli(cli.main, generate))
+    else:
+        call("calib generate", cli.main, generate)
+        nonempty(*(os.path.join(cfg_dir, f) for f in ("orbslam3.yaml", "vins_fusion.yaml",
+                                                      "basalt.json", "lego_loam.yaml")))
+
+    # all: phase 11's LeGO-LOAM-size traversal, its orb_slam3 copy and a
+    # droid_slam copy at half rate and half scale
+    from mlis_tpu_torch.core.trajectory import Trajectory
+
+    root = os.path.join(tmp, "trajectories")
+    seqs = lego_traversal()
+    write_tree(root, "lego_loam", seqs)
+    write_tree(root, "orb_slam3", orb_copy(seqs))
+    write_tree(root, "droid_slam", [(n, f, Trajectory(tr.timestamps[::2], 0.5 * tr.positions[::2],
+                                                       tr.quaternions[::2])) for n, f, tr in seqs])
+    out_all = os.path.join(tmp, "all")
+    all_argv = ["all", "--trajectory-root", root, "--output", out_all, "--device", d]
+    if "matplotlib" in absent:
+        # all's gating and evaluation without its figures: the gate and
+        # evaluate subcommands over the same tree (three K1 launches)
+        call("gate", cli.main, ["gate", "--trajectory-root", root, "--output", out_all,
+                                "--device", d], {"tri_count": 3})
+        call("evaluate", cli.main, ["evaluate", "--trajectory-root", root, "--output", out_all])
+        refused("all (the subcommand)", "matplotlib", lambda: run_cli(cli.main, all_argv))
+        nonempty(os.path.join(out_all, "semantic_gating_metrics.json"),
+                 os.path.join(out_all, "final_evaluation.json"))
+    else:
+        call("all", cli.main, all_argv, {"tri_count": 3})
+        check_all_outputs(out_all)
+    via = "gate" if "matplotlib" in absent else "all"
+    total = {k: sum(c[k] for c in launches.values()) for k in launches[via]}
+    log("15c cli", t0, launches=json.dumps(total, separators=(",", ":")),
+        pipeline_K1=launches["pipeline"]["tri_count"], **{f"{via}_K1": launches[via]["tri_count"]},
+        not_installed=",".join(sorted(absent)) or "none")
+    return {"launches": launches, "fullgate": gates, "k1_via": via}
+
+
+def check_all_outputs(out_all: str) -> None:
+    """Every figure and artifact of the ``all`` subcommand, not empty."""
+    figs = os.path.join(out_all, "figures")
+    names = ["figure6.png", "figure7.png", "rpe_boxplot.png", "paper_comparison.png",
+             "all_floors_overview.png", "trajectory_3d.html",
+             *(f"trajectory_2d_{n}.png" for n, *_ in LEGO_FLOORS)]
+    paths = [os.path.join(figs, f) for f in names]
+    paths += [os.path.join(out_all, "semantic_gating", f"{a}_{k}.png")
+              for a in ("orb_slam3", "droid_slam", "lego_loam")
+              for k in ("floor_segmentation", "3d_multifloor", "loop_closure_gating")]
+    paths += [os.path.join(out_all, "metrics", "table_iv.csv"),
+              os.path.join(out_all, "BENCHMARK_RESULTS_SUMMARY.md")]
+    for p in paths:
+        if not os.path.exists(p) or os.path.getsize(p) == 0:
+            raise AssertionError(f"15c all: {p} missing or empty")
+
+
+def phase_roofline(main_path: dict, name_power: str) -> None:
+    """15d: utils.roofline over phase 3's profiled stage spans (device
+    seconds of each stage range at the bench protocol)."""
+    from mlis_tpu_torch.utils import roofline as rl
+
+    spans = main_path["spans"]
+    if not spans:
+        print("  15d roofline: no profiled spans (phase 3 profiles on the card only)", flush=True)
+        return
+    n, (H, W) = main_path["keyframes"], main_path["hw"]
+    h8, w8 = (H // 8) * 8, (W // 8) * 8
+    in_h, in_w = main_path["vpr_input"]
+    D, k, M = main_path["descriptor_dim"], main_path["top_k"], max(main_path["verified"], 1)
+    K = main_path["match_top_k"] or main_path["max_keypoints"]
+    cfg, hyp = main_path["matcher"], main_path["hypotheses"]
+    stages = [
+        # gate.detect runs the grayscale resize and SuperPoint
+        rl.StageRoofline("detect", spans["gate.detect"],
+                         n * h8 * w8 * 10.0 + n * rl.superpoint_flops(h8, w8),
+                         rl.grayscale_bytes(n, H, W, h8, w8)
+                         + rl.superpoint_bytes(n, h8, w8, max_keypoints=main_path["max_keypoints"])),
+        rl.StageRoofline("encode", spans["gate.encode"], n * rl.resnet50_stage3_flops(in_h, in_w),
+                         rl.resnet50_stage3_bytes(n, in_h, in_w)
+                         + n * (H * W + in_h * in_w * 3 * 4.0)),
+        rl.StageRoofline("retrieve", spans["gate.retrieval"], rl.retrieval_flops(n, D),
+                         rl.retrieval_bytes(n, D, k)),
+        rl.StageRoofline("match", spans["lightglue.match"],
+                         M * rl.matcher_flops(K, cfg.dim, cfg.depth),
+                         rl.matcher_stage_bytes(M, K, cfg.dim, cfg.depth, cfg.num_heads)),
+        rl.StageRoofline("ransac", spans["epipolar.ransac"], rl.ransac_flops(M, K, hyp),
+                         rl.ransac_bytes(M, K, hyp)),
+    ]
+    print(f"  15d roofline (phase 3: {n} keyframes at {H}x{W}, MixVPR {in_h}x{in_w} D={D}, "
+          f"{M} verified pairs x {K} keypoints, {hyp} hypotheses; gpu {name_power}; peaks "
+          f"{rl.H100_PEAK_BF16:.4g} FLOP/s bf16, {rl.H100_HBM_BYTES_PER_S:.4g} B/s)", flush=True)
+    for line in rl.format_table(stages).splitlines():
+        print("  15d " + line, flush=True)
+    for st in stages:
+        bound_s = max(st.flops / rl.H100_PEAK_BF16, st.bytes / rl.H100_HBM_BYTES_PER_S)
+        print(f"  15d {st.name} device_s={st.seconds:.6f} bound_s={bound_s:.6f} "
+              f"flops={st.flops:.6g} bytes={st.bytes:.6g} "
+              + " ".join(f"{k}={v}" for k, v in st.row().items()), flush=True)
+    log("15d roofline", time.perf_counter(), stages=len(stages),
+        stage_device_s=f"{sum(st.seconds for st in stages):.4f}",
+        gate_wall_s=f"{main_path['wall_s']:.4f}")
+
+
+def phase_io(dev, args, main_path: dict) -> dict:
+    """Phase 15, under inference mode, in a temporary directory: the bag
+    (15a), the codecs (15b), the CLI entry points (15c), the roofline (15d)."""
+    import tempfile
+
+    name_power = gpu_name_and_power() if dev.type == "cuda" else "cpu rehearsal"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mlis_phase15_") as tmp:
+        bag = phase_io_bag(dev, args, tmp, name_power)
+        phase_io_codecs(tmp, bag["traversal"])
+        del bag["traversal"]
+        out = phase_io_cli(dev, args, tmp, bag)
+    phase_roofline(main_path, name_power)
+    log("15 io", t0, gpu=json.dumps(name_power))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -3732,6 +4245,10 @@ def main() -> int:
                     help="phase 11's run_pgo_real depth (default: the JAX package's 12 x 1024)")
     ap.add_argument("--train-depth", type=int, default=12,
                     help="phase 13d's ViT-B/14 depth (default: CricaVPR's 12)")
+    ap.add_argument("--io-scans", type=int, default=IO_SCANS,
+                    help="phase 15a's OS-128 scans in the bag (default 300, the 30 s around a ride)")
+    ap.add_argument("--io-fullgate-frames", type=int, default=64,
+                    help="phase 15c's fullgate scene (default the CLI's 64 keyframes at 540x720)")
     ap.add_argument("--demo-iters", type=int, nargs=2, default=[20, 256],
                     metavar=("NUM_ITERS", "CG_ITERS"),
                     help="the pgo CLI's depth in a CPU rehearsal (the card runs its defaults)")
@@ -3765,21 +4282,29 @@ def main() -> int:
     parallel = phase_parallel(dev, args)
     # the pretraining drivers differentiate too
     phase_pretrain(dev, args)
+    with torch.inference_mode():
+        io_path = phase_io(dev, args, main_path)
     signal.alarm(0)
     print(f"[total] {time.perf_counter() - t_all:.3f}s", flush=True)
     if dev.type != "cuda":
         print("cpu rehearsal finished: no device result", flush=True)
         return 0
+    io_cli = {name.replace(" ", "_").replace("-", "_"): c
+              for name, c in io_path["launches"].items()}
+    io_cli_gates = [io_cli[n] for n in IO_GATES]
     kernels = [{
         "name": "tri_count",
         "route": "cuda",
         "source": "mlis_tpu_torch/csrc/pairwise.cu",
         "replaces": "mlis_tpu/ops/pairwise.py:138",
         # one run of each path that reaches it: phase 3's sweep, phase 10's
-        # three, phase 11's three (the LeGO-scale count and the gate CLI's two)
-        "launches": main_path["launches"] + floor_path["launches"] + backend["launches"],
+        # three, phase 11's three (the LeGO-scale count and the gate CLI's
+        # two), phase 15's all CLI or, without matplotlib, its gate step (three)
+        "launches": (main_path["launches"] + floor_path["launches"] + backend["launches"]
+                     + io_cli[io_path["k1_via"]]["tri_count"]),
         "launches_by_path": {"3": main_path["launches"], "10": floor_path["launches"],
-                             "11": backend["launches"]},
+                             "11": backend["launches"],
+                             f"15_{io_path['k1_via']}": io_cli[io_path["k1_via"]]["tri_count"]},
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -3793,10 +4318,12 @@ def main() -> int:
         "replaces": "mlis_tpu/ops/flash_attention.py:31, mlis_tpu/ops/flash_attention.py:80",
         # one gate run of each path that reaches it
         "launches": (path_b["flash_attention"] + sum(c["flash_attention"] for c in path_c.values())
-                     + path_d["flash_attention"]),
+                     + path_d["flash_attention"] + sum(io_gate["flash_attention"]
+                                                       for io_gate in io_cli_gates)),
         "launches_by_path": {"B": path_b["flash_attention"],
                              **{f"C_{m}": c["flash_attention"] for m, c in path_c.items()},
-                             "D": path_d["flash_attention"]},
+                             "D": path_d["flash_attention"],
+                             **{f"15_{n}": io_cli[n]["flash_attention"] for n in IO_GATES}},
         **attn["flash_attention"],
     }, {
         "name": "dense_attention",
@@ -3804,11 +4331,13 @@ def main() -> int:
         "source": "mlis_tpu_torch/csrc/attention.cu",
         "replaces": "mlis_tpu/ops/attention.py:25, mlis_tpu/ops/attention.py:38",
         "launches": (path_a["dense_attention"] + quality["dense_attention"]
-                     + families["dense_attention"] + parallel["dense_attention"]),
+                     + families["dense_attention"] + parallel["dense_attention"]
+                     + sum(io_gate["dense_attention"] for io_gate in io_cli_gates)),
         "launches_by_path": {"A": path_a["dense_attention"],
                              "quality2_cricavpr_rows": quality["dense_attention"],
                              "12": families["dense_attention"],
-                             "13": parallel["dense_attention"]},
+                             "13": parallel["dense_attention"],
+                             **{f"15_{n}": io_cli[n]["dense_attention"] for n in IO_GATES}},
         **attn["dense_attention"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

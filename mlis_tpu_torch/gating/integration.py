@@ -24,11 +24,6 @@ from mlis_tpu_torch.core.trajectory import Trajectory, combine_sequences
 from mlis_tpu_torch.gating.gate import SemanticLoopClosureGate
 from mlis_tpu_torch.ops.pairwise import candidate_counts, candidate_pairs_host
 
-FIGURES_NOT_PORTED = (
-    "figures need the viz/ module, which is not ported yet (ROADMAP Queue 1 item 10)"
-)
-
-
 @dataclass
 class LoopClosureAnalysis:
     """Candidate statistics after floor gating."""
@@ -190,14 +185,43 @@ class SemanticIntegration:
         save_report: bool = True,
         make_figures: bool = False,
     ) -> str:
-        if make_figures:
-            raise NotImplementedError(FIGURES_NOT_PORTED)
         self.load_and_combine()
         analysis = self.last_analysis = self.analyze(distance_threshold, min_time_gap)
         report = self.generate_report(analysis)
         if save_report:
             self.output_dir.mkdir(parents=True, exist_ok=True)
             (self.output_dir / f"{self.algorithm}_semantic_analysis.txt").write_text(report)
+        if make_figures:
+            from mlis_tpu_torch.viz.figures import (
+                plot_floor_segmentation,
+                plot_loop_closure_gating,
+                plot_multifloor_3d,
+            )
+
+            self.output_dir.mkdir(parents=True, exist_ok=True)
+            plot_floor_segmentation(
+                self.combined, self.floor_labels,
+                self.output_dir / f"{self.algorithm}_floor_segmentation.png",
+                title=self.display_name,
+            )
+            plot_multifloor_3d(
+                self.combined, self.floor_labels,
+                self.output_dir / f"{self.algorithm}_3d_multifloor.png",
+                title=self.display_name,
+            )
+            # before/after gating links on a pose subsample
+            step = max(len(self.combined) // 4000, 1)
+            sub = self.combined[::step]
+            sub_floors = self.floor_labels[::step]
+            qi, mi, _ = candidate_pairs_host(
+                sub[:, 1:4], sub_floors,
+                radius=distance_threshold, min_gap=max(min_time_gap // step, 2),
+            )
+            plot_loop_closure_gating(
+                sub, sub_floors, list(zip(qi, mi)),
+                self.output_dir / f"{self.algorithm}_loop_closure_gating.png",
+                title=self.display_name,
+            )
         return report
 
 
@@ -237,18 +261,16 @@ def run_comparison(
 ) -> Dict[str, LoopClosureAnalysis]:
     """Run every integration and write the cross-algorithm comparison.
 
-    per_algo_reports also writes each algorithm's
-    ``<algo>_semantic_analysis.txt``; make_figures raises
-    ``NotImplementedError`` until ``viz/`` is ported."""
-    if make_figures:
-        raise NotImplementedError(FIGURES_NOT_PORTED)
+    per_algo_reports / make_figures also write each algorithm's
+    ``<algo>_semantic_analysis.txt`` and its three figures (floor
+    segmentation, 3D multi-floor, gating links)."""
     algorithms = algorithms or list(INTEGRATIONS)
     results: Dict[str, LoopClosureAnalysis] = {}
     meta: Dict[str, Dict] = {}
     for algo in algorithms:
         integ = INTEGRATIONS[algo](trajectory_root, output_dir, device=device)
-        if per_algo_reports:
-            integ.run_full_analysis(save_report=True)
+        if per_algo_reports or make_figures:
+            integ.run_full_analysis(save_report=per_algo_reports, make_figures=make_figures)
             results[algo] = integ.last_analysis
             combined, floors = integ.combined, integ.floor_labels
         else:

@@ -3,14 +3,15 @@ floors, gate candidates, report.
 
 Counterpart of ``mlis_tpu/gating/pipeline.py``: a TUM trajectory and an
 IMU table in, elevator events and per-pose floor labels out, the
-floor-consistency gate over candidate lists, a text report, and a
-``--demo`` mode that synthesises a trajectory and an IMU stream with two
-elevator rides:
+floor-consistency gate over candidate lists, a text report, the 2D and
+3D figures, and a ``--demo`` mode that synthesises a trajectory and an IMU
+stream with two elevator rides:
 
     python -m mlis_tpu_torch.gating.pipeline --demo [--device cpu]
 
-The figures (``visualize_results``, ``visualize_3d``) need ``viz/``,
-which is not ported yet: they raise ``NotImplementedError``.
+``load_imu_data`` reads a CSV (``.csv``) or whitespace table without a
+header row, as the JAX package's does; a CSV written by ``bag imu-csv``
+(which carries a header) is refused by both.
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ import numpy as np
 from mlis_tpu_torch.core.trajectory import load_tum
 from mlis_tpu_torch.gating.floor_detector import ElevatorEvent, IMUFloorDetector
 from mlis_tpu_torch.gating.gate import SemanticLoopClosureGate
-from mlis_tpu_torch.gating.integration import FIGURES_NOT_PORTED
 
 
 class SemanticGatingPipeline:
@@ -109,10 +109,24 @@ class SemanticGatingPipeline:
         return report
 
     def visualize_results(self) -> Optional[Path]:
-        raise NotImplementedError(FIGURES_NOT_PORTED)
+        if self.trajectory is None or self.floor_labels is None:
+            raise ValueError("run the pipeline first")
+        from mlis_tpu_torch.viz.figures import plot_floor_segmentation
+
+        self.output_dir.mkdir(parents=True, exist_ok=True)
+        path = self.output_dir / "pipeline_floor_segmentation.png"
+        plot_floor_segmentation(self.trajectory, self.floor_labels, path)
+        return path
 
     def visualize_3d(self) -> Optional[Path]:
-        raise NotImplementedError(FIGURES_NOT_PORTED)
+        if self.trajectory is None or self.floor_labels is None:
+            raise ValueError("run the pipeline first")
+        from mlis_tpu_torch.viz.figures import plot_multifloor_3d
+
+        self.output_dir.mkdir(parents=True, exist_ok=True)
+        path = self.output_dir / "pipeline_3d_multifloor.png"
+        plot_multifloor_3d(self.trajectory, self.floor_labels, path)
+        return path
 
 
 def make_demo_data(seed: int = 0):
@@ -183,9 +197,9 @@ def main(argv=None):
         p.load_trajectory(args.trajectory)
         p.load_imu_data(args.imu)
         p.detect_floors(start_floor=args.start_floor)
-        print(p.generate_report())
-        p.visualize_results()  # raises until viz/ is ported
+        p.visualize_results()
         p.visualize_3d()
+        print(p.generate_report())
         return 0
     parser.print_help()
     return 1

@@ -1,1 +1,1 @@
-"""Host-side helpers: analytic FLOP counts."""
+"""Host-side helpers: analytic FLOP and byte counts, the H100 roofline, profiling."""

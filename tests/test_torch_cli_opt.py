@@ -2,7 +2,8 @@
 tree: `gate` and `evaluate` write the same JSON and markdown as mlis_tpu's
 CLI (floats within 1e-12), `pgo` prints the demo's JSON (at a reduced
 depth here: the CPU takes ~20 ms a CG step, the card runs the defaults in
-chip_smoke.py phase 11), and the figure options raise NotImplementedError."""
+chip_smoke.py phase 11), and the figure options write the JAX package's
+figures."""
 
 import contextlib
 import functools
@@ -49,8 +50,12 @@ def test_gate_cli_matches(tree, tmp_path):
     report = (tmp_path / "p" / "lego_loam_semantic_analysis.txt").read_text()
     lc = metrics["lego_loam"]["loop_closure"]
     assert f"Cross-floor rate: {lc['cross_floor_rate']:.1%}" in report
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        cli.main(["gate", "--figures", "--device", "cpu", *args])
+    fig_args = ["gate", "--figures", "--algorithms", "lego_loam", "--trajectory-root", str(tree)]
+    _run(cli.main, [*fig_args, "--output", str(tmp_path / "pf"), "--device", "cpu"])
+    _run(jcli.main, [*fig_args, "--output", str(tmp_path / "jf")])
+    for name in ("lego_loam_floor_segmentation.png", "lego_loam_3d_multifloor.png",
+                 "lego_loam_loop_closure_gating.png", "rejection_rates.png"):
+        assert (tmp_path / "pf" / name).read_bytes() == (tmp_path / "jf" / name).read_bytes(), name
 
 
 @pytest.mark.parametrize("extra", [[], ["--proper-se3", "--fast"]])
@@ -63,12 +68,14 @@ def test_evaluate_cli_matches(tree, tmp_path, extra):
           json.loads((tmp_path / "j" / "final_evaluation.json").read_text()))
 
 
-def test_pgo_cli_prints_the_demo(monkeypatch):
+def test_pgo_cli_prints_the_demo(monkeypatch, tmp_path):
     small = functools.partial(demo.run_pgo_demo, num_iters=1, cg_iters=4)
     monkeypatch.setattr(demo, "run_pgo_demo", small)
-    rc, out = _run(cli.main, ["pgo", "--seed", "0", "--device", "cpu"])
+    fig = tmp_path / "pgo.png"
+    rc, out = _run(cli.main, ["pgo", "--seed", "0", "--device", "cpu", "--figure", str(fig)])
     assert rc == 0
     got = json.loads(out)
+    assert got["figure"] == str(fig) and fig.stat().st_size > 5000
     assert got["n_poses"] == 218 and got["gate_correct"] and got["n_candidates"] == 23
     for v in ("odometry", "gated", "ungated", "sc", "gnc", "pcm"):
         assert np.isfinite(got[f"{v}_ate_rmse"]) and np.isfinite(got[f"{v}_cost_final"]), v
@@ -78,7 +85,6 @@ def test_pgo_cli_prints_the_demo(monkeypatch):
     rc, out = _run(cli.main, ["pgo", "--seed", "3", "--no-priors", "--huber-delta", "2.0",
                               "--device", "cpu"])
     assert rc == 0 and json.loads(out) == {"ok": 1}
-    assert seen == dict(seed=3, huber_delta=2.0, use_priors=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        cli.main(["pgo", "--figure", "x.png", "--device", "cpu"])
+    assert seen == dict(seed=3, huber_delta=2.0, use_priors=False, return_trajectories=False,
+                        device="cpu")
     assert _run(cli.main, [])[0] == 1  # no subcommand: help

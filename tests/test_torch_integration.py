@@ -153,8 +153,11 @@ def test_run_full_analysis_and_comparison(tmp_path):
     assert port.loop_gate.get_stats() == ref.loop_gate.get_stats()
     saved = (tmp_path / "p" / "orb_slam3_semantic_analysis.txt").read_text()
     assert saved == text
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        port.run_full_analysis(make_figures=True)
+    port.run_full_analysis(make_figures=True, save_report=False)
+    ref.run_full_analysis(make_figures=True, save_report=False)
+    for fig in ("floor_segmentation", "3d_multifloor", "loop_closure_gating"):
+        name = f"orb_slam3_{fig}.png"
+        assert (tmp_path / "p" / name).read_bytes() == (tmp_path / "j" / name).read_bytes(), fig
 
     ex = port.analyze(with_examples=True)
     ref_ex = ref.analyze(with_examples=True)
@@ -173,8 +176,11 @@ def test_run_full_analysis_and_comparison(tmp_path):
     got = integ.run_comparison(str(root), str(tmp_path / "p2"), algorithms=["lego_loam"],
                                per_algo_reports=True, device="cpu")
     assert (tmp_path / "p2" / "lego_loam_semantic_analysis.txt").exists()
-    with pytest.raises(NotImplementedError):
-        integ.run_comparison(str(root), str(tmp_path / "p3"), make_figures=True, device="cpu")
+    got = integ.run_comparison(str(root), str(tmp_path / "p3"), algorithms=["lego_loam"],
+                               make_figures=True, device="cpu")
+    assert got["lego_loam"].total_candidates == want["lego_loam"].total_candidates
+    assert not (tmp_path / "p3" / "lego_loam_semantic_analysis.txt").exists()
+    assert (tmp_path / "p3" / "lego_loam_loop_closure_gating.png").stat().st_size > 1000
     with pytest.raises(FileNotFoundError):
         integ.LegoLoamSemanticIntegration(str(tmp_path / "none"), device="cpu").load_and_combine()
     assert set(integ.INTEGRATIONS) == set(jax_integ.INTEGRATIONS)

@@ -175,9 +175,9 @@ def test_gate_matches_mlis_tpu(strict):
 
 def test_port_runs_without_jax_or_mlis_tpu():
     """Every module of mlis_tpu_torch imports, and the sweep, the gate paths,
-    the pose-graph demo, two VPR trainer steps and one MatcherTrainer step
-    run, with jax, flax, optax and orbax absent and any mlis_tpu import
-    refused."""
+    the pose-graph demo, two VPR trainer steps, one MatcherTrainer step, a
+    bag round trip through the native runtime and the public API run, with
+    jax, flax, optax and orbax absent and any mlis_tpu import refused."""
     code = textwrap.dedent("""
         import sys
         for banned in ("jax", "flax", "optax", "orbax"):
@@ -210,7 +210,29 @@ def test_port_runs_without_jax_or_mlis_tpu():
                 "mlis_tpu_torch.train.pretrain_matcher", "mlis_tpu_torch.train.loftr_trainer",
                 "mlis_tpu_torch.train.pretrain_loftr", "mlis_tpu_torch.train.superpoint_trainer",
                 "mlis_tpu_torch.train.pretrain_superpoint",
-                "mlis_tpu_torch.train.pretrain_vpr"} <= set(names), names
+                "mlis_tpu_torch.train.pretrain_vpr", "mlis_tpu_torch.runtime.native",
+                "mlis_tpu_torch.core.lz4f", "mlis_tpu_torch.core.bag",
+                "mlis_tpu_torch.core.calibration", "mlis_tpu_torch.config",
+                "mlis_tpu_torch.utils.profiling", "mlis_tpu_torch.utils.roofline",
+                "mlis_tpu_torch.viz.figures", "mlis_tpu_torch.viz.paper_figures",
+                "mlis_tpu_torch.viz.live"} <= set(names), names
+        import contextlib, io, os, tempfile
+        from mlis_tpu_torch.core.bag import BagWriter, encode_imu, extract_imu
+        with tempfile.TemporaryDirectory() as tmp:
+            bag = os.path.join(tmp, "imu.bag")
+            w = BagWriter(bag)
+            for i in range(8):
+                w.write("/vectornav/imu", "sensor_msgs/Imu", 1.0 + i,
+                        encode_imu(1.0 + i, [i, 0, 9.8], [0, 0, i]))
+            w.close(compression="lz4")
+            t, a, g = extract_imu(bag)
+            assert np.array_equal(t, 1.0 + np.arange(8)) and np.array_equal(a[:, 0], np.arange(8))
+        from mlis_tpu_torch import cli
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli.main(["layout", "--list"]) == 0
+        assert buf.getvalue().split() == ["gating_monitor", "lego_loam", "orb_slam3"]
+        assert all(getattr(mlis_tpu_torch, n) is not None for n in mlis_tpu_torch._LAZY)
         from mlis_tpu_torch.ops.pairwise import candidate_counts, candidate_counts_host
         from mlis_tpu_torch.gating.place_recognition import _build_vpr, process_image_sequence
         rng = np.random.default_rng(0)

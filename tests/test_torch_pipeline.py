@@ -70,10 +70,10 @@ def test_pipeline_file_io_matches_jax(tmp_path, suffix):
     assert [dataclasses.astuple(c) for c in pv] == [dataclasses.astuple(c) for c in rv]
     assert [dataclasses.astuple(c) for c in pr] == [dataclasses.astuple(c) for c in rr]
     assert port.generate_report() == ref.generate_report()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        port.visualize_results()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        port.visualize_3d()
+    # the figures: the same PNG bytes as the JAX package's
+    for fig in ("visualize_results", "visualize_3d"):
+        got, want = getattr(port, fig)(), getattr(ref, fig)()
+        assert got.name == want.name and got.read_bytes() == want.read_bytes(), fig
 
 
 def test_pipeline_errors_and_loose_gate(tmp_path):
