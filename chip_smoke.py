@@ -34,8 +34,9 @@ Phases, one line each as they end:
    128 mono8 keyframes at 270x360 with the shipped MixVPR and LightGlue
    checkpoints (one warm-up, three timed runs with bench.py's keywords
    ``survivor_budget`` = the previous run's survivors and
-   ``monolithic=True``, one more under torch.profiler for the device time
-   per stage and kernel);
+   ``monolithic=True``: the warm-up runs the exact path, the timed runs
+   the pipelined path, as the keyframes are host arrays; one more exact
+   run under torch.profiler for the device time per stage and kernel);
 4. the same gate at 16 keyframes on the card and on the CPU in float32
    with TF32 off and the same RANSAC draws: identical candidate and
    survivor pairs, decisions equal except within 1 inlier or 0.01 of
@@ -220,6 +221,26 @@ Phases, one line each as they end:
    (d) ``utils.roofline`` over phase 3's profiled stage spans against the
    H100's peaks. Rehearse it alone on the CPU (a few minutes):
    ``python -c "import argparse, torch, chip_smoke as c; torch.inference_mode().__enter__(); c.phase_io(torch.device('cpu'), argparse.Namespace(scans=600, io_scans=100, io_fullgate_frames=32), {'spans': {}})"``.
+16. the budget paths of ``FullGatePipeline.process`` and the experiment
+   twins, under inference mode: (a) phase 3's pipeline and keyframes
+   down the exact path, the budgeted path (``survivor_budget`` = the exact
+   run's survivors), the one-fetch path (the keyframes already on the
+   card, ``monolithic=True``) and the pipelined path (host keyframes in
+   slices of 32): each once on one set of RANSAC draws (counts and pairs
+   equal to the exact path's, decisions within the bf16 band rule of
+   phase 7) with the calls of the methods that show the path taken, then
+   pairs/s (best of three after a warm-up), peak memory, one profiled run
+   (kernel time, busy share) and the card's synchronisations under
+   ``torch.cuda.set_sync_debug_mode("warn")``; a budget of 1 on the
+   budgeted and one-fetch paths (the exact path reruns) and a threshold of
+   2.0 (empty); (b) path A's CricaVPR and (c) path B through the one-fetch
+   path (12 dense launches for the 128 frames in one encode call; 2 x
+   depth flash launches for one fused call over every slot), each against
+   its exact run; (d) the pipelined path's host-to-device copies and the
+   share of them that ran beside a kernel, from (a)'s profile; (e) every
+   ``mlis_tpu_torch/experiments`` twin at one seed (loftr_heldout at 4)
+   with its outputs in a temporary directory; superglue_cut is reported as
+   not run where ``superglue_parallax.npz`` is not in the copy.
 Phases 5, 6, 8, 9 and 12a run like phase 3 (warm-up, three timed runs, one
 profiled run), with every launch counter set to 0 before each run.
 
@@ -799,10 +820,11 @@ def profile_gate(dev, pipe, inputs, gen, best_wall: float, encode_batch_size: in
                        best_wall)
 
 
-def profile_run(dev, run, best_wall: float) -> dict:
+def profile_run(dev, run, best_wall: float, events_out=None) -> dict:
     """``run()`` once under torch.profiler: device time per stage range and
     per kernel, and the device's busy share of the run's wall time. Returns
-    the device seconds of each stage range."""
+    the device seconds of each stage range; a list ``events_out`` receives
+    every device event as (name, start_ns, duration_ns)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -816,6 +838,10 @@ def profile_run(dev, run, best_wall: float) -> dict:
     # minutes for a run of some 10^5 kernels (phase 7's ORB row)
     dev_events = [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
                   if e.device_type() == DeviceType.CUDA]
+    if events_out is not None:
+        events_out.extend((e.name(), e.start_ns(), e.duration_ns())
+                          for e in prof.profiler.kineto_results.events()
+                          if e.device_type() == DeviceType.CUDA)
     kernels = [(name, us) for name, us in dev_events if name not in STAGES]
     busy_us = sum(us for _, us in kernels)
     spans = {name: sum(us for n, us in dev_events if n == name) for name in STAGES}
@@ -863,7 +889,7 @@ def phase_main_path(dev, args, expected_sweep) -> dict:
         sync(dev)
         budget = res.verified or None
         wall = time.perf_counter() - t0
-        kind = "warmup" if rep == 0 else f"timed{rep}"
+        kind = "warmup (exact)" if rep == 0 else f"timed{rep} (pipelined)"
         log(f"3 gate {kind}", t0, candidates=res.total_pairs,
             floor_rejected=res.cross_floor_rejected, verified=res.verified,
             accepted=res.geometrically_valid, pairs_per_s=f"{res.total_pairs / wall:.1f}",
@@ -2959,15 +2985,12 @@ CRICA_COSINE = 0.999  # sharded encode vs the non-sharded one
 
 
 def budget_slots(s: int) -> int:
-    """The JAX package's FullGatePipeline._budget_slots: a survivor budget
-    rounded up to {5, 6, 7, 8} x 2^k slots (at least 16), the slot count
-    bench.py's multichip mode gives the sharded step."""
-    s = max(int(s), 1)
-    if s <= 16:
-        return 16
-    p = 1 << (s - 1).bit_length()
-    q = p // 8
-    return -(-s // q) * q
+    """``FullGatePipeline._budget_slots``: a survivor budget rounded up to
+    {5, 6, 7, 8} x 2^k slots (at least 16), the slot count bench.py's
+    multichip mode gives the sharded step."""
+    from mlis_tpu_torch.gating.full_gate import FullGatePipeline
+
+    return FullGatePipeline._budget_slots(s)
 
 
 def host_recount(desc: torch.Tensor, timestamps, floors, threshold: float = 0.3, k: int = 10):
@@ -4234,6 +4257,425 @@ def phase_io(dev, args, main_path: dict) -> dict:
     return out
 
 
+# -- phase 16: the budget paths of FullGatePipeline.process, the experiment twins ----
+
+UPLOAD_CHUNK = 32  # 16a's pipelined path: frames a slice
+GATE_PATHS = ("exact", "budgeted", "one_fetch", "pipelined")
+# the methods whose calls show which path process took
+PATH_METHODS = ("_verify_survivors", "_verify_compacted", "_verify_slots",
+                "_detect_encode_once", "_detect_encode_pipelined", "_fetch")
+# 16a's decisions across paths on the same draws: the shipped bf16 models'
+# band of phase 7 (QUALITY_BANDS); the gate's verifier applies no confident cut
+GATE_PATH_BANDS = dict(conf_band=3, inlier_band=3, bound_inliers=False, confident_cut=None)
+# 16e: each twin at one seed (loftr_heldout at its held-out seed 4)
+TWIN_RUNS = (("v2_scoreboard", ["--seeds", "0"]), ("encoder_rows", ["--seeds", "0"]),
+             ("encoder_intervention", ["--seeds", "0"]), ("rerank_quality", ["--seeds", "0"]),
+             ("superglue_cut", ["--seeds", "0", "--select-seeds", "0"]),
+             ("loftr_heldout", ["--seeds", "4"]), ("fullres_matcher_quality", ["0"]),
+             ("fullres_pruning_quality", ["0"]))
+
+
+@contextlib.contextmanager
+def counting_calls(pipe):
+    """Count calls of ``pipe``'s PATH_METHODS while the block runs."""
+    calls = dict.fromkeys(PATH_METHODS, 0)
+    for name in PATH_METHODS:
+        def wrapped(*a, _orig=getattr(pipe, name), _name=name, **kw):
+            calls[_name] += 1
+            return _orig(*a, **kw)
+
+        setattr(pipe, name, wrapped)
+    try:
+        yield calls
+    finally:
+        for name in PATH_METHODS:
+            delattr(pipe, name)
+
+
+def expected_calls(path: str, n: int, overflow: bool = False) -> dict:
+    want = dict.fromkeys(PATH_METHODS, 0)
+    want["_verify_survivors"] = int(path == "exact" or overflow)
+    if path != "exact":
+        want["_fetch"] = 1
+        want["_verify_compacted" if path == "budgeted" else "_verify_slots"] = 1
+    if path == "one_fetch":
+        want["_detect_encode_once"] = 1
+    if path == "pipelined":
+        want["_detect_encode_pipelined"] = 1
+        want["_detect_encode_once"] = -(-n // UPLOAD_CHUNK)
+    return want
+
+
+def run_gate_path(pipe, path: str, inputs, images_dev, budget, **kw):
+    """``pipe.process`` as each path takes it: host keyframes for the exact,
+    budgeted and pipelined paths, the frames already on the card for the
+    one-fetch path; bench.py's keywords."""
+    images, timestamps, floors, K = inputs
+    pipe.spr.vpr.descriptors = []
+    if hasattr(pipe.spr.vpr, "patch_cache"):
+        pipe.spr.vpr.patch_cache = []
+    if path == "exact":
+        return pipe.process(images, timestamps, floors, K, encode_batch_size=128, **kw)
+    return pipe.process(images_dev if path == "one_fetch" else images, timestamps, floors, K,
+                        encode_batch_size=128, survivor_budget=budget,
+                        monolithic=path != "budgeted", upload_chunk=UPLOAD_CHUNK, **kw)
+
+
+def gate_pairs(res) -> dict:
+    """A FullGateResult in the harness's ``pairs`` form, for decision_drift."""
+    return {"total_candidates": res.total_pairs, "verified": res.verified, "pairs": [
+        {"q": r.query_idx, "m": r.match_idx, "is_valid": r.is_valid,
+         "num_inliers": r.num_inliers, "inlier_ratio": r.inlier_ratio,
+         "num_confident_matches": r.num_confident_matches} for r in res.results]}
+
+
+def check_same_gate(what: str, res, ref) -> None:
+    got = (res.total_pairs, res.cross_floor_rejected, res.verified)
+    want = (ref.total_pairs, ref.cross_floor_rejected, ref.verified)
+    if got != want:
+        raise AssertionError(f"{what}: (total, rejected, verified) {got} != the exact path's {want}")
+    if [(r.query_idx, r.match_idx) for r in res.results] != \
+            [(r.query_idx, r.match_idx) for r in ref.results]:
+        raise AssertionError(f"{what}: verified pairs differ from the exact path's")
+
+
+def pipelined_decisions(pipe, inputs, res, ref, draws) -> None:
+    """The pipelined path detects and encodes in slices of UPLOAD_CHUNK
+    frames, and cuDNN's bf16 convolutions round differently at another
+    batch size: on these keyframes of flat 8-pixel cells, whose corner
+    scores tie, that moves SuperPoint's top-k choice. So its decisions are
+    held to the band rule against the exact path detecting and encoding in
+    the same slices, and their drift from the 128-frame batches is
+    reported."""
+    from mlis_tpu_torch.eval.quality import decision_drift
+
+    stats, broken = decision_drift(gate_pairs(res)["pairs"], gate_pairs(ref)["pairs"],
+                                   **GATE_PATH_BANDS)
+    print("  16a pipelined vs exact (128-frame detect and encode), same draws: "
+          + " ".join(f"{k}={v}" for k, v in stats.items()) + f" outside_band={len(broken)}",
+          flush=True)
+    images, timestamps, floors, K = inputs
+    detect_all = pipe._detect_all
+    pipe._detect_all = lambda imgs, detect_batch=UPLOAD_CHUNK: detect_all(imgs, UPLOAD_CHUNK)
+    try:
+        pipe.spr.vpr.descriptors = []
+        sliced = pipe.process(images, timestamps, floors, K, encode_batch_size=UPLOAD_CHUNK,
+                              ransac_uniforms=draws)
+    finally:
+        del pipe._detect_all
+    check_same_gate("16a exact in slices", sliced, ref)
+    compare_decisions(gate_pairs(res), gate_pairs(sliced), GATE_PATH_BANDS,
+                      f"16a pipelined vs exact in slices of {UPLOAD_CHUNK}, same draws")
+
+
+def count_syncs(dev, run) -> tuple:
+    """Host synchronisations of the card during ``run()``, as
+    torch.cuda.set_sync_debug_mode("warn") reports them: (the count, the
+    count by the source line of the port that asked)."""
+    import warnings
+    from collections import Counter
+
+    if dev.type != "cuda":
+        return -1, {}
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in seen
+                    if "synchroniz" in str(w.message))
+    return sum(sites.values()), dict(sites.most_common())
+
+
+def copy_overlap(events) -> tuple:
+    """(seconds of host-to-device copies, the seconds of them during which a
+    kernel ran) from a profile's device events."""
+    copies = [(s, s + d) for name, s, d in events if "HtoD" in name]
+    busy = sorted((s, s + d) for name, s, d in events
+                  if name not in STAGES and not name.startswith("Memcpy")
+                  and not name.startswith("Memset"))
+    merged = []
+    for s, e in busy:
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    overlap = sum(max(0, min(e, me) - max(s, ms)) for s, e in copies for ms, me in merged)
+    return sum(e - s for s, e in copies) / 1e9, overlap / 1e9
+
+
+def phase_gate_paths(dev, args) -> dict:
+    """16a and 16d: bench.py's gate (phase 3's pipeline and keyframes) down
+    each path of ``process``, with the call counts that show the path taken,
+    decisions against the exact path's on the same draws, pairs/s, kernel
+    time, busy share, syncs and peak memory, then an overflow and an empty
+    gate; the pipelined path's copy / compute overlap from its profile."""
+    t0 = time.perf_counter()
+    inputs = keyframes(args.keyframes)
+    n = len(inputs[0])
+    pipe = build_pipeline(dev, torch.bfloat16)
+    images_dev = torch.as_tensor(inputs[0], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    probe = run_gate_path(pipe, "exact", inputs, images_dev, None, generator=gen)
+    budget = probe.verified
+    k = min(pipe.top_k, n)
+    slots = {"exact": budget, "budgeted": min(budget, n * k),
+             "one_fetch": min(budget_slots(budget), n * k)}
+    slots["pipelined"] = slots["one_fetch"]
+    draws = torch.rand((slots["one_fetch"], 512, 8), generator=gen, device=dev)
+    log("16a setup", t0, keyframes=n, budget=budget, slots=json.dumps(slots),
+        upload_chunk=UPLOAD_CHUNK)
+
+    ref, out = None, {}
+    for path in GATE_PATHS:
+        t0 = time.perf_counter()
+        with counting_calls(pipe) as calls:
+            res = run_gate_path(pipe, path, inputs, images_dev, budget,
+                                ransac_uniforms=draws[: slots[path]])
+        if calls != expected_calls(path, n):
+            raise AssertionError(f"16a {path}: calls {calls}, expected {expected_calls(path, n)}")
+        if ref is None:
+            ref = res
+        elif path == "pipelined":
+            check_same_gate(f"16a {path}", res, ref)
+            pipelined_decisions(pipe, inputs, res, ref, draws[:budget])
+        else:
+            check_same_gate(f"16a {path}", res, ref)
+            compare_decisions(gate_pairs(res), gate_pairs(ref), GATE_PATH_BANDS,
+                              f"16a {path} vs exact, same draws")
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        walls = []
+        for _ in range(TIMED_REPS + 1):  # the first is the warm-up
+            t1 = time.perf_counter()
+            r = run_gate_path(pipe, path, inputs, images_dev, budget, generator=gen)
+            sync(dev)
+            walls.append(time.perf_counter() - t1)
+            check_same_gate(f"16a {path} timed", r, ref)
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+        best = min(walls[1:])
+        events = []
+        if dev.type == "cuda":
+            profile_run(dev, lambda: run_gate_path(pipe, path, inputs, images_dev, budget,
+                                                   generator=gen), best, events)
+        syncs, sync_sites = count_syncs(dev, lambda: run_gate_path(
+            pipe, path, inputs, images_dev, budget, generator=gen))
+        out[path] = {"pairs_per_s": ref.total_pairs / best, "walls": walls[1:]}
+        log(f"16a {path}", t0, candidates=res.total_pairs, floor_rejected=res.cross_floor_rejected,
+            verified=res.verified, accepted=res.geometrically_valid,
+            pairs_per_s=f"{ref.total_pairs / best:.1f}",
+            walls=",".join(f"{w:.4f}" for w in walls[1:]), syncs=syncs, peak_mem_bytes=peak,
+            calls=json.dumps({k: v for k, v in calls.items() if v}, separators=(",", ":")))
+        if sync_sites:
+            print(f"  16a {path} syncs by site: " + json.dumps(sync_sites), flush=True)
+        if path == "pipelined" and events:
+            copy_s, overlap_s = copy_overlap(events)
+            log("16d pipelined overlap", time.perf_counter(), htod_copy_s=f"{copy_s:.6f}",
+                copy_during_kernels_s=f"{overlap_s:.6f}",
+                overlap_share=f"{overlap_s / copy_s:.4f}" if copy_s else "nan")
+
+    # overflow: a budget of 1 (16 slots on the monolithic paths) reruns exact
+    t0 = time.perf_counter()
+    # the monolithic paths' 16 slots overflow only above 16 survivors
+    for path in ("budgeted", "one_fetch") if budget > budget_slots(1) else ("budgeted",):
+        with counting_calls(pipe) as calls:
+            res = run_gate_path(pipe, path, inputs, images_dev, 1,
+                                generator=torch.Generator(device=dev).manual_seed(1))
+        want = expected_calls(path, n, overflow=True)
+        if calls != want:
+            raise AssertionError(f"16a {path} budget 1: calls {calls}, expected {want}")
+        check_same_gate(f"16a {path} budget 1", res, ref)
+    # nothing above any similarity: the one-fetch path's empty result
+    pipe.similarity_threshold = 2.0
+    try:
+        with counting_calls(pipe) as calls:
+            empty = run_gate_path(pipe, "one_fetch", inputs, images_dev, budget)
+    finally:
+        pipe.similarity_threshold = 0.3
+    if (empty.total_pairs, empty.verified, calls["_verify_survivors"]) != (0, 0, 0):
+        raise AssertionError(f"16a threshold 2.0: {empty.summary()}, calls {calls}")
+    log("16a overflow and empty", t0, overflow_reruns=1 + (budget > budget_slots(1)),
+        empty_total=empty.total_pairs)
+    return out
+
+
+def drive_one_fetch(phase: str, dev, pipe, inputs, expected_launches) -> dict:
+    """An exact run for the budget, then the one-fetch path (frames on the
+    card) once checked against it and TIMED_REPS timed after a warm-up,
+    every launch counter set to 0 before each run."""
+    images, timestamps, floors, K = inputs
+    n = len(images)
+    images_dev = torch.as_tensor(images, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ref = run_gate_path(pipe, "exact", inputs, images_dev, None, generator=gen)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    walls = []
+    for rep in range(TIMED_REPS + 1):
+        reset_launch_counts()
+        with counting_calls(pipe) as calls:
+            t0 = time.perf_counter()
+            res = run_gate_path(pipe, "one_fetch", inputs, images_dev, ref.verified,
+                                generator=gen)
+            sync(dev)
+            wall = time.perf_counter() - t0
+        counts = launch_counts()
+        if calls != expected_calls("one_fetch", n):
+            raise AssertionError(f"{phase}: calls {calls}")
+        check_same_gate(phase, res, ref)
+        if dev.type == "cuda" and counts != expected_launches:
+            raise AssertionError(f"{phase}: kernel launches {counts}, expected {expected_launches}")
+        if rep:
+            walls.append(wall)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    slots = min(budget_slots(ref.verified), n * min(pipe.top_k, n))
+    log(f"{phase} one-fetch", time.perf_counter(), candidates=res.total_pairs,
+        verified=res.verified, slots=slots, accepted=res.geometrically_valid,
+        pairs_per_s=f"{res.total_pairs / min(walls):.1f}",
+        walls=",".join(f"{w:.4f}" for w in walls),
+        exact_pairs_per_s=f"{ref.total_pairs / ref.elapsed_s:.1f}", peak_mem_bytes=peak,
+        launches_per_run=json.dumps(counts, separators=(",", ":")))
+    return counts
+
+
+def phase_one_fetch_a(dev, args) -> dict:
+    """16b: path A's CricaVPR (ViT-B/14 at 322) through the one-fetch path:
+    one encode call over every keyframe, each block's attention one launch
+    of the dense kernel."""
+    from mlis_tpu_torch.gating.full_gate import FullGatePipeline
+    from mlis_tpu_torch.gating.place_recognition import SemanticPlaceRecognition
+    from mlis_tpu_torch.gating.verification import GeometricVerifier
+    from mlis_tpu_torch.models.lightglue import LightGlue
+    from mlis_tpu_torch.models.superpoint import SuperPointConfig
+    from mlis_tpu_torch.weights import default_matcher_checkpoint
+
+    t0 = time.perf_counter()
+    inputs = keyframes(args.keyframes)
+    matcher = LightGlue.from_checkpoint(
+        default_matcher_checkpoint(), sp_cfg=SuperPointConfig(max_keypoints=1024), device=dev)
+    spr = SemanticPlaceRecognition("cricavpr", similarity_threshold=0.3, min_time_gap=10.0,
+                                   device=dev)
+    pipe = FullGatePipeline(vpr=spr, verifier=GeometricVerifier(matcher=matcher),
+                            similarity_threshold=0.3, verify_batch=VERIFY_BATCH, match_top_k=512,
+                            matcher_weights=None, num_hypotheses=512, device=dev)
+    log("16b setup", t0, keyframes=len(inputs[0]), vpr="cricavpr", encode_calls=1)
+    return drive_one_fetch("16b", dev, pipe, inputs,
+                           {"tri_count": 0, "flash_attention": 0, "dense_attention": 12})
+
+
+def phase_one_fetch_b(dev, args) -> dict:
+    """16c: path B (540x720, 2048 keypoints all matched, the fullres
+    LightGlue) through the one-fetch path: one fused call over every slot,
+    2 x depth flash launches."""
+    from mlis_tpu_torch.gating.full_gate import FullGatePipeline
+    from mlis_tpu_torch.gating.place_recognition import SemanticPlaceRecognition
+    from mlis_tpu_torch.gating.verification import GeometricVerifier
+    from mlis_tpu_torch.models.lightglue import LightGlue
+    from mlis_tpu_torch.models.resnet import ResNetConfig
+    from mlis_tpu_torch.models.superpoint import SuperPointConfig
+    from mlis_tpu_torch.weights import default_fullres_matcher_checkpoint
+
+    t0 = time.perf_counter()
+    inputs = keyframes(args.keyframes, 540, 720, cell=16)
+    matcher = LightGlue.from_checkpoint(default_fullres_matcher_checkpoint(),
+                                        sp_cfg=SuperPointConfig(max_keypoints=2048), device=dev)
+    spr = SemanticPlaceRecognition("mixvpr", similarity_threshold=0.3, min_time_gap=10.0,
+                                   device=dev,
+                                   backbone_cfg=ResNetConfig(crop_stage=3, dtype=torch.bfloat16))
+    pipe = FullGatePipeline(vpr=spr, verifier=GeometricVerifier(matcher=matcher),
+                            similarity_threshold=0.3, verify_batch=VERIFY_BATCH, match_top_k=None,
+                            matcher_weights=None, num_hypotheses=512, device=dev)
+    log("16c setup", t0, keyframes=len(inputs[0]), resolution="540x720", detect=2048)
+    return drive_one_fetch("16c", dev, pipe, inputs,
+                           {"tri_count": 0, "dense_attention": 0,
+                            "flash_attention": 2 * matcher.cfg.depth})
+
+
+def _finite_json(obj, where: str) -> None:
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            _finite_json(v, f"{where}.{k}")
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            _finite_json(v, f"{where}[{i}]")
+    elif isinstance(obj, float) and not np.isfinite(obj):
+        raise AssertionError(f"{where} = {obj}")
+
+
+def twin_summary(d: dict) -> dict:
+    """A twin's result in one line: its top-level numbers and, for a table
+    of rows, each row's first number."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            out[k] = v
+        elif isinstance(v, dict) and v and all(isinstance(x, dict) for x in v.values()):
+            out[k] = {name: next((x for x in row.values() if isinstance(x, (int, float))), None)
+                      for name, row in v.items()}
+    return out
+
+
+def phase_twins(dev) -> None:
+    """16e: each experiment twin's ``main`` at one seed on the card, its
+    outputs in a temporary directory; superglue_cut only where its
+    checkpoint is in the copy."""
+    import importlib
+    import tempfile
+
+    from mlis_tpu_torch.weights import shipped_checkpoint
+
+    if dev.type != "cuda":
+        print("  16e: the twins run on the card (tier-1 runs each at a small size: "
+              "tests/test_torch_experiments.py)", flush=True)
+        return
+    with tempfile.TemporaryDirectory(prefix="mlis_phase16_") as tmp:
+        for name, argv in TWIN_RUNS:
+            t0 = time.perf_counter()
+            if name == "superglue_cut" and shipped_checkpoint("superglue_parallax.npz") is None:
+                log(f"16e {name}", t0, run=False,
+                    reason="superglue_parallax.npz is not in the copy")
+                continue
+            mod = importlib.import_module(f"mlis_tpu_torch.experiments.{name}")
+            fullres = name.startswith("fullres")
+            extra = ["--device", dev.type] + ([] if fullres else
+                                              ["--out", os.path.join(tmp, f"{name}.json")])
+            reset_launch_counts()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                res = mod.main(argv + extra)
+            if fullres:
+                res = {"lines": [json.loads(x) for x in buf.getvalue().splitlines()
+                                 if x.startswith("{")]}
+                if len(res["lines"]) != 2:
+                    raise AssertionError(f"16e {name}: {len(res['lines'])} JSON lines, expected 2")
+                summary = {f"{x['seed']}_{x.get('ckpt', x.get('match_top_k'))}": x["f1"]
+                           for x in res["lines"]}
+            else:
+                with open(os.path.join(tmp, f"{name}.json")) as f:
+                    if json.load(f) != json.loads(json.dumps(res)):
+                        raise AssertionError(f"16e {name}: the written JSON is not the result")
+                summary = twin_summary(res)
+            _finite_json(res, f"16e {name}")
+            log(f"16e {name}", t0, run=True, argv=json.dumps(argv),
+                summary=json.dumps(summary, separators=(",", ":")),
+                launches=json.dumps(launch_counts(), separators=(",", ":")))
+
+
+def phase_budget_paths(dev, args) -> dict:
+    """Phase 16, under inference mode."""
+    name_power = gpu_name_and_power() if dev.type == "cuda" else "cpu rehearsal"
+    t0 = time.perf_counter()
+    paths = phase_gate_paths(dev, args)
+    crica = phase_one_fetch_a(dev, args)
+    fullres = phase_one_fetch_b(dev, args)
+    phase_twins(dev)
+    log("16 budget paths", t0, gpu=json.dumps(name_power),
+        pairs_per_s=json.dumps({p: round(v["pairs_per_s"], 1) for p, v in paths.items()}))
+    return {"16b": crica, "16c": fullres}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -4284,6 +4726,7 @@ def main() -> int:
     phase_pretrain(dev, args)
     with torch.inference_mode():
         io_path = phase_io(dev, args, main_path)
+        budget_paths = phase_budget_paths(dev, args)
     signal.alarm(0)
     print(f"[total] {time.perf_counter() - t_all:.3f}s", flush=True)
     if dev.type != "cuda":
@@ -4319,11 +4762,13 @@ def main() -> int:
         # one gate run of each path that reaches it
         "launches": (path_b["flash_attention"] + sum(c["flash_attention"] for c in path_c.values())
                      + path_d["flash_attention"] + sum(io_gate["flash_attention"]
-                                                       for io_gate in io_cli_gates)),
+                                                       for io_gate in io_cli_gates)
+                     + budget_paths["16c"]["flash_attention"]),
         "launches_by_path": {"B": path_b["flash_attention"],
                              **{f"C_{m}": c["flash_attention"] for m, c in path_c.items()},
                              "D": path_d["flash_attention"],
-                             **{f"15_{n}": io_cli[n]["flash_attention"] for n in IO_GATES}},
+                             **{f"15_{n}": io_cli[n]["flash_attention"] for n in IO_GATES},
+                             "16c": budget_paths["16c"]["flash_attention"]},
         **attn["flash_attention"],
     }, {
         "name": "dense_attention",
@@ -4332,12 +4777,14 @@ def main() -> int:
         "replaces": "mlis_tpu/ops/attention.py:25, mlis_tpu/ops/attention.py:38",
         "launches": (path_a["dense_attention"] + quality["dense_attention"]
                      + families["dense_attention"] + parallel["dense_attention"]
-                     + sum(io_gate["dense_attention"] for io_gate in io_cli_gates)),
+                     + sum(io_gate["dense_attention"] for io_gate in io_cli_gates)
+                     + budget_paths["16b"]["dense_attention"]),
         "launches_by_path": {"A": path_a["dense_attention"],
                              "quality2_cricavpr_rows": quality["dense_attention"],
                              "12": families["dense_attention"],
                              "13": parallel["dense_attention"],
-                             **{f"15_{n}": io_cli[n]["dense_attention"] for n in IO_GATES}},
+                             **{f"15_{n}": io_cli[n]["dense_attention"] for n in IO_GATES},
+                             "16b": budget_paths["16b"]["dense_attention"]},
         **attn["dense_attention"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

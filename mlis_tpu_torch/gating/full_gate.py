@@ -1,8 +1,6 @@
 """Full semantic gate: VPR retrieval -> floor gate -> geometric verification.
 
-Counterpart of the standard two-phase path of
-``mlis_tpu/gating/full_gate.py`` (``FullGatePipeline.process`` with
-``survivor_budget=None`` and ``monolithic=False``). Stage order:
+Counterpart of ``mlis_tpu/gating/full_gate.py``. Stage order:
 
 1. keypoints detected once per keyframe (SuperPoint, optionally pruned to
    the top ``match_top_k`` by score) and VPR descriptors (CricaVPR by
@@ -18,12 +16,30 @@ Counterpart of the standard two-phase path of
    converted once) through ``GeometricVerifier.verify_pairs_batch`` with
    ``batch_size=verify_batch``; no keypoints are detected up front.
 
-The fused-budget, mega and pipelined-mega variants of the JAX package are
-not ported yet. Each stage runs inside a ``torch.profiler`` range
-(``gate.detect``, ``gate.encode``, ``gate.retrieval``, ``lightglue.match``
-with ``superglue.sinkhorn`` inside it for SuperGlue, ``loftr.match``,
-``orb.match``, ``epipolar.ransac``) so that a profile attributes device time
-to stages.
+``process`` runs one of four paths, as the JAX package does:
+
+* the exact two-phase path above (no ``survivor_budget``);
+* the budgeted path (``survivor_budget`` set): stage 2 compacts the
+  survivors into a static number of slots on the device, the fused
+  matcher runs over them in power-of-two buckets, and one host fetch
+  brings back every pair, result and count;
+* the one-fetch path (``monolithic=True``, keyframes already a tensor on
+  the pipeline's device): detect and encode every frame in one call each,
+  the static gate, one fused call over all slots, one fetch;
+* the pipelined path (``monolithic=True``, host keyframes): slices of
+  ``upload_chunk`` frames copied from pinned memory on a copy stream while
+  the compute stream detects and encodes the slice before, then the same
+  tail as the one-fetch path.
+
+A budget path whose survivors overflow its slots runs the exact path's
+retrieval and verification on the keypoints and descriptors it already
+has on the device, so the result never depends on the budget.
+
+Each stage runs inside a ``torch.profiler`` range (``gate.detect``,
+``gate.encode``, ``gate.retrieval``, ``lightglue.match`` with
+``superglue.sinkhorn`` inside it for SuperGlue, ``loftr.match``,
+``orb.match``, ``epipolar.ransac``) so that a profile attributes device
+time to stages.
 """
 
 from __future__ import annotations
@@ -49,6 +65,17 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``cuda`` and ``cuda:0`` name one card when 0 is the current one."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    current = torch.cuda.current_device()
+    return (a.index if a.index is not None else current) == (
+        b.index if b.index is not None else current)
+
+
 def _gate_compact(
     db: torch.Tensor,  # (n, D) descriptors
     times: torch.Tensor,  # (n,)
@@ -58,13 +85,22 @@ def _gate_compact(
     threshold: float,
     min_time_gap: float,
     strict: bool,
-) -> Tuple[torch.Tensor, torch.Tensor, Tuple[int, int]]:
+    M: Optional[int] = None,
+):
     """Retrieval -> unique-pair dedup -> floor gate -> survivor compaction.
 
     Each above-threshold candidate is packed as the int64 key lo * n + hi;
     sorting the keys and keeping first occurrences is ``np.unique`` over
     (lo, hi) rows, so survivors come out in ascending (lo, hi) order.
-    Returns (qi (S,), mi (S,), (total_unique_pairs, rejected_by_floor))."""
+
+    Without ``M``: returns (qi (S,), mi (S,), (total_unique_pairs,
+    rejected_by_floor)) with the counts as host ints (one sync).
+
+    With a static slot count ``M`` (at most n * k): no sync. Survivors go
+    to the first M slots by a stable argsort on the reject mask, slots past
+    min(n_survivors, M) hold the pair (0, 0), and the counts stay on the
+    device: returns (qi (M,), mi (M,), stats (3,) = [total, rejected,
+    n_survivors])."""
     n = db.shape[0]
     scores, idx = cosine_topk(db, db, times, times, k=k, min_time_gap=min_time_gap)
     q = torch.arange(n, device=db.device)[:, None].expand(n, k)
@@ -79,8 +115,29 @@ def _gate_compact(
     lo_s = torch.div(skeys, n, rounding_mode="floor").clamp(max=n - 1)
     hi_s = skeys % n
     accept = uniq & gate_mask(floors, lo_s, hi_s, strict)
-    total, rejected = (int(v) for v in torch.stack([uniq.sum(), (uniq & ~accept).sum()]).tolist())
-    return lo_s[accept], hi_s[accept], (total, rejected)
+    total, rejected = uniq.sum(), (uniq & ~accept).sum()
+    if M is None:
+        total, rejected = (int(v) for v in torch.stack([total, rejected]).tolist())
+        return lo_s[accept], hi_s[accept], (total, rejected)
+    if not 0 <= M <= skeys.numel():
+        raise ValueError(f"slot count M={M} must lie in [0, n * k = {skeys.numel()}]")
+    nsurv = accept.sum()
+    # an integer key: CUDA sorts no bool tensor
+    order = torch.argsort((~accept).to(torch.int32), stable=True)[:M]
+    in_budget = torch.arange(M, device=db.device) < torch.clamp(nsurv, max=M)
+    qi = torch.where(in_budget, lo_s[order], 0)
+    mi = torch.where(in_budget, hi_s[order], 0)
+    return qi, mi, torch.stack([total, rejected, nsurv])
+
+
+def _slot_rows(qi: torch.Tensor, mi: torch.Tensor, out) -> torch.Tensor:
+    """(B, 33) float32 rows: [qi, mi] then :func:`pack_rows`' 31 columns."""
+    return torch.cat([torch.stack([qi, mi], 1).to(torch.float32), pack_rows(out)], 1)
+
+
+def _stats_row(stats: torch.Tensor) -> torch.Tensor:
+    """The (1, 33) row [total, rejected, n_survivors, 0, ...] under the slots."""
+    return torch.cat([stats.to(torch.float32), stats.new_zeros(30, dtype=torch.float32)])[None]
 
 
 @dataclass
@@ -214,16 +271,27 @@ class FullGatePipeline:
         ransac_uniforms: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> FullGateResult:
-        """upload_chunk, survivor_budget, monolithic: accepted in the JAX
-        package's positions so that its callers (bench.py's reps, the
-        ``fullgate`` CLI) run unchanged, and they change nothing. There
-        they select budgeted, fused or one-dispatch variants whose result
-        never depends on the budget (an overflow reruns the exact path);
-        this method always runs the exact two-phase path.
+        """survivor_budget: with a fused matcher and an encoder with
+        ``encode_batch_device``, retrieval, dedup, floor gate and
+        compaction fill min(survivor_budget, n * k) static slots on the
+        device, and verification ends in one host fetch. monolithic (with a
+        budget): the one-fetch path for keyframes already on the device,
+        the pipelined path (``upload_chunk`` frames a slice) for host
+        keyframes; both round the budget up by :meth:`_budget_slots`. An
+        overflow reruns the exact path, so no result depends on the budget.
 
-        ransac_uniforms: optional (n_survivors, num_hypotheses, 8) draws
-        for RANSAC, one block per survivor in compaction order; without
-        them the draws come from ``generator`` on the device.
+        ransac_uniforms: RANSAC's draws, one (num_hypotheses, 8) block per
+        verified pair: (n_survivors, ...) in compaction order on the exact
+        path, (M, ...) over the slots on a budget path (any other shape
+        raises). Without them, and on an overflow's exact rerun, the draws
+        come from ``generator`` on the device; an overflow rewinds
+        ``generator`` to its state before the budget path drew, so the
+        rerun draws as a plain exact call would.
+
+        Stage seconds: on the budget paths the split is indicative only
+        (work is queued, not finished, when a stage's clock stops; the
+        monolithic paths leave ``retrieval_s`` at 0 with the gate inside
+        ``verify_s``), and ``elapsed_s`` is what compares across paths.
 
         ``images`` may be a tensor already on the device (as bench.py passes
         device arrays), which then is not copied."""
@@ -231,42 +299,75 @@ class FullGatePipeline:
         res = FullGateResult()
         dev = self.device
         t_start = time.perf_counter()
-
-        # 1) keypoints once per keyframe + VPR descriptors, device-resident
-        if not isinstance(images, torch.Tensor):
-            images = np.ascontiguousarray(images)
-        imgs = torch.as_tensor(images, device=dev)
         fused_ok = verify and hasattr(self.verifier.matcher, "make_fused_match_verify")
-        with record_function("gate.detect"):
-            kp_all = self._detect_all(imgs) if fused_ok else None
         encode_dev = getattr(self.spr.vpr, "encode_batch_device", None)
-        if encode_dev is not None:
-            with record_function("gate.encode"):
-                db = torch.cat([
-                    encode_dev(imgs[s : s + encode_batch_size])
-                    for s in range(0, n, encode_batch_size)
-                ])
+        budget_ok = (survivor_budget is not None and fused_ok and encode_dev is not None
+                     and n * n < 2**31)
+        k = min(self.top_k, n)
+        floors = torch.as_tensor(np.asarray(floor_labels).astype(np.int64), device=dev)
+        hw = (int(images.shape[1]), int(images.shape[2]))
+        gen_state = generator.get_state() if budget_ok and generator is not None else None
+
+        if budget_ok and monolithic:
+            M = int(min(self._budget_slots(min(survivor_budget, n * k)), n * k))
+            uniforms = self._slot_uniforms(ransac_uniforms, M)
             times = torch.as_tensor(np.asarray(timestamps, np.float32), device=dev)
+            if isinstance(images, torch.Tensor) and _same_device(images.device, dev):
+                kp_all, db = self._detect_encode_once(images)
+            else:
+                kp_all, db = self._detect_encode_pipelined(images, upload_chunk)
+            res.vpr_s = time.perf_counter() - t_start
+            t0 = time.perf_counter()
+            out = self._verify_slots(kp_all, db, times, floors, K, hw, k, M, uniforms, generator)
+            if out is not None:
+                return self._finish(res, out, t0, t_start)
         else:
-            for s in range(0, n, encode_batch_size):
-                e = min(s + encode_batch_size, n)
-                self.spr.add_images_batch(images[s:e], timestamps[s:e], floor_labels[s:e])
-            db = torch.as_tensor(self.spr.vpr.build_descriptor_matrix(), device=dev)
-            times = torch.as_tensor(self.spr.vpr.timestamps().astype(np.float32), device=dev)
-        _sync(dev)
-        res.vpr_s = time.perf_counter() - t_start
+            # 1) keypoints once per keyframe + VPR descriptors, device-resident
+            if not isinstance(images, torch.Tensor):
+                images = np.ascontiguousarray(images)
+            imgs = torch.as_tensor(images, device=dev)
+            with record_function("gate.detect"):
+                kp_all = self._detect_all(imgs) if fused_ok else None
+            if encode_dev is not None:
+                with record_function("gate.encode"):
+                    db = torch.cat([
+                        encode_dev(imgs[s : s + encode_batch_size])
+                        for s in range(0, n, encode_batch_size)
+                    ])
+                times = torch.as_tensor(np.asarray(timestamps, np.float32), device=dev)
+            else:
+                for s in range(0, n, encode_batch_size):
+                    e = min(s + encode_batch_size, n)
+                    self.spr.add_images_batch(images[s:e], timestamps[s:e], floor_labels[s:e])
+                db = torch.as_tensor(self.spr.vpr.build_descriptor_matrix(), device=dev)
+                times = torch.as_tensor(self.spr.vpr.timestamps().astype(np.float32), device=dev)
+            if not budget_ok:
+                _sync(dev)
+            res.vpr_s = time.perf_counter() - t_start
+
+            # 2-4 budgeted) static compaction, bucketed fused verify, one fetch
+            if budget_ok:
+                M = int(min(survivor_budget, n * k))
+                uniforms = self._slot_uniforms(ransac_uniforms, M)
+                t0 = time.perf_counter()
+                with record_function("gate.retrieval"):
+                    qi, mi, stats = _gate_compact(
+                        db, times, floors, k=k, M=M, **self._gate_kw())
+                res.retrieval_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                out = self._verify_compacted(kp_all, qi, mi, stats, K, hw, uniforms, generator)
+                if out is not None:
+                    return self._finish(res, out, t0, t_start)
+
+        if budget_ok:  # overflow: the exact path on what is already on the device
+            ransac_uniforms = None
+            if gen_state is not None:
+                generator.set_state(gen_state)
 
         # 2-3) retrieval, dedup, floor gate, compaction
         t0 = time.perf_counter()
-        floors = torch.as_tensor(np.asarray(floor_labels).astype(np.int64), device=dev)
         with record_function("gate.retrieval"):
-            qi, mi, (total, rejected) = _gate_compact(
-                db, times, floors,
-                k=min(self.top_k, n),
-                threshold=float(self.similarity_threshold),
-                min_time_gap=float(self.min_time_gap),
-                strict=bool(self.strict_floor),
-            )
+            qi, mi, (total, rejected) = _gate_compact(db, times, floors, k=k, **self._gate_kw())
         res.total_pairs, res.cross_floor_rejected = total, rejected
         res.retrieval_s = time.perf_counter() - t0
         if total == 0:
@@ -277,7 +378,6 @@ class FullGatePipeline:
         # detected keypoints, or pair batches of grayscale images
         if verify and qi.numel():
             t0 = time.perf_counter()
-            hw = (int(imgs.shape[1]), int(imgs.shape[2]))
             if fused_ok:
                 res.results = self._verify_survivors(kp_all, qi, mi, K, hw, ransac_uniforms,
                                                      generator)
@@ -288,6 +388,29 @@ class FullGatePipeline:
             res.geometrically_valid = sum(1 for r in res.results if r.is_valid)
         res.elapsed_s = time.perf_counter() - t_start
         return res
+
+    def _gate_kw(self) -> Dict:
+        return dict(threshold=float(self.similarity_threshold),
+                    min_time_gap=float(self.min_time_gap), strict=bool(self.strict_floor))
+
+    @staticmethod
+    def _finish(res: FullGateResult, out, t0: float, t_start: float) -> FullGateResult:
+        res.results, res.total_pairs, res.cross_floor_rejected, _nsurv = out
+        res.verified = len(res.results)
+        res.geometrically_valid = sum(1 for r in res.results if r.is_valid)
+        res.verify_s = time.perf_counter() - t0
+        res.elapsed_s = time.perf_counter() - t_start
+        return res
+
+    def _slot_uniforms(self, uniforms: Optional[torch.Tensor], M: int) -> Optional[torch.Tensor]:
+        """A budget path's draws: one block per slot, on the device."""
+        if uniforms is None:
+            return None
+        if tuple(uniforms.shape) != (M, self.num_hypotheses, 8):
+            raise ValueError(
+                f"ransac_uniforms must be {(M, self.num_hypotheses, 8)} on a budget path "
+                f"({M} slots), got {tuple(uniforms.shape)}")
+        return uniforms.to(self.device)
 
     def _detect_all(self, images: torch.Tensor, detect_batch: int = 128) -> Keypoints:
         """Keypoints for every keyframe, coordinates in input pixels."""
@@ -307,6 +430,50 @@ class FullGatePipeline:
                 kp = kp.map(lambda x: x[:, :top_m])
             kps.append(kp)
         return Keypoints(*(torch.cat(parts) for parts in zip(*kps)))
+
+    def _detect_encode_once(self, imgs: torch.Tensor) -> Tuple[Keypoints, torch.Tensor]:
+        """Keypoints and descriptors of every frame, one call each (the
+        one-fetch path ignores ``encode_batch_size``, as the JAX package's
+        single program does)."""
+        n = int(imgs.shape[0])
+        with record_function("gate.detect"):
+            kp_all = self._detect_all(imgs, detect_batch=max(n, 1))
+        with record_function("gate.encode"):
+            db = self.spr.vpr.encode_batch_device(imgs)
+        return kp_all, db
+
+    def _detect_encode_pipelined(self, images, upload_chunk: int) -> Tuple[Keypoints, torch.Tensor]:
+        """Host keyframes in slices of ``upload_chunk`` frames: on the card
+        every slice's copy from pinned memory is queued on a copy stream at
+        once, and the compute stream waits on each slice's event before it
+        detects and encodes that slice, so slice i + 1 copies while slice i
+        computes. On the CPU the same slices run in order."""
+        dev = self.device
+        host = images.cpu() if isinstance(images, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(images))
+        n, uc = int(host.shape[0]), max(int(upload_chunk), 1)
+        bounds = [(s, min(s + uc, n)) for s in range(0, n, uc)]
+        if dev.type == "cuda":
+            host = host.pin_memory()
+            copy, compute = torch.cuda.Stream(dev), torch.cuda.current_stream(dev)
+            staged = []
+            with torch.cuda.stream(copy):
+                for s, e in bounds:
+                    part = host[s:e].to(dev, non_blocking=True)
+                    staged.append((part, copy.record_event()))
+            parts = []
+            for part, done in staged:
+                compute.wait_event(done)
+                part.record_stream(compute)
+                parts.append(part)
+        else:
+            parts = [host[s:e].to(dev) for s, e in bounds]
+        kp_parts, db_parts = [], []
+        for part in parts:
+            kp, db = self._detect_encode_once(part)
+            kp_parts.append(kp)
+            db_parts.append(db)
+        return Keypoints(*(torch.cat(xs) for xs in zip(*kp_parts))), torch.cat(db_parts)
 
     def _verify_gray_pairs(self, imgs, qi, mi, K, uniforms, generator) -> List[MatchResult]:
         """Survivors as grayscale pairs through ``verify_pairs_batch`` in
@@ -332,6 +499,8 @@ class FullGatePipeline:
         return self._fused_cache[key]
 
     def _verify_survivors(self, kp_all, qi, mi, K, hw, uniforms, generator) -> List[MatchResult]:
+        """The exact path's verify: fused over the survivors in chunks of
+        ``verify_batch``, one fetch."""
         fused = self._get_fused(hw, K)
         S, B = qi.numel(), self.verify_batch
         if uniforms is not None and tuple(uniforms.shape) != (S, self.num_hypotheses, 8):
@@ -346,3 +515,73 @@ class FullGatePipeline:
         flat = torch.cat(rows).cpu().numpy()  # one fetch
         pairs = torch.stack([qi, mi], 1).cpu().numpy()
         return self.verifier.results_from_rows(pairs, flat)
+
+    def _verify_compacted(self, kp_all, qi_all, mi_all, stats, K, hw, uniforms, generator):
+        """The budgeted path's verify: the fused matcher over the M slots in
+        :meth:`_bucket_sizes` buckets (the last may hold fewer than its
+        size), every bucket's rows and the stats row fetched once. None on
+        an overflow."""
+        fused = self._get_fused(hw, K)
+        M = int(qi_all.numel())
+        rows, s = [], 0
+        for size in self._bucket_sizes(M, self.verify_batch):
+            qi, mi = qi_all[s : s + size], mi_all[s : s + size]
+            u = uniforms[s : s + size] if uniforms is not None else None
+            rows.append(_slot_rows(qi, mi, fused(kp_all, qi, mi, uniforms=u, generator=generator)))
+            s += size
+        return self._parse_packed(self._fetch(torch.cat(rows + [_stats_row(stats)])), M)
+
+    def _verify_slots(self, kp_all, db, times, floors, K, hw, k, M, uniforms, generator):
+        """The monolithic paths' tail: the static gate, one fused call over
+        all M slots, one fetch. None on an overflow."""
+        with record_function("gate.retrieval"):
+            qi, mi, stats = _gate_compact(db, times, floors, k=k, M=M, **self._gate_kw())
+        out = self._get_fused(hw, K)(kp_all, qi, mi, uniforms=uniforms, generator=generator)
+        return self._parse_packed(self._fetch(torch.cat([_slot_rows(qi, mi, out),
+                                                         _stats_row(stats)])), M)
+
+    @staticmethod
+    def _fetch(packed: torch.Tensor) -> np.ndarray:
+        """The budget paths' one host fetch of the packed (M + 1, 33) rows."""
+        return packed.cpu().numpy()
+
+    def _parse_packed(self, flat: np.ndarray, M: int):
+        """Decode fetched (M + 1, 33) slot rows and stats row into (results,
+        total, rejected, n_survivors); None when the survivors overflow the
+        M slots. Slots past the survivors (the padding pair (0, 0)) are
+        dropped; a pair with fewer than 5 matches is invalid."""
+        total, rejected, nsurv = (int(v) for v in flat[-1, :3])
+        if nsurv > M:
+            return None
+        results = self.verifier.results_from_rows(flat[:nsurv, :2], flat[:nsurv, 2:])
+        return results, total, rejected, nsurv
+
+    @staticmethod
+    def _budget_slots(s) -> int:
+        """Round a survivor budget up to quarter-octave granularity
+        ({5, 6, 7, 8} * 2^k, at least 16): padding slots are matcher work,
+        and four sizes an octave bound the distinct shapes."""
+        s = max(int(s), 1)
+        if s <= 16:
+            return 16
+        p = 1 << (s - 1).bit_length()  # next power of two >= s, so s in (p/2, p]
+        q = p // 8
+        return -(-s // q) * q  # ceil to a multiple of p/8: {5,6,7,8}*p/8
+
+    @staticmethod
+    def _bucket_sizes(n_pairs: int, B: int) -> List[int]:
+        """Greedy power-of-two buckets of at least min(64, B): 411 pairs
+        run as 256 + 128 + 64 = 448 slots rather than 2 x 256."""
+        sizes: List[int] = []
+        floor = min(64, B)
+        rem = n_pairs
+        while rem > 0:
+            if rem >= B:
+                take = B
+            else:
+                take = floor
+                while take * 2 <= rem:
+                    take *= 2
+            sizes.append(take)
+            rem -= min(take, rem)
+        return sizes
