@@ -32,11 +32,11 @@ Phases, one line each as they end:
 3. the main path as bench.py's default mode runs it: the sweep through
    ``gating.integration.analyze``, then ``FullGatePipeline.process`` on
    128 mono8 keyframes at 270x360 with the shipped MixVPR and LightGlue
-   checkpoints (one warm-up, three timed runs with bench.py's keywords
-   ``survivor_budget`` = the previous run's survivors and
-   ``monolithic=True``: the warm-up runs the exact path, the timed runs
-   the pipelined path, as the keyframes are host arrays; one more exact
-   run under torch.profiler for the device time per stage and kernel);
+   checkpoints, with bench.py's keywords ``survivor_budget`` = the
+   previous run's survivors and ``monolithic=True``: one exact run that
+   sets the budget, then a warm-up, three timed runs and one run under
+   torch.profiler (device time per stage and kernel), all four down the
+   one-fetch path, host keyframes uploaded once);
 4. the same gate at 16 keyframes on the card and on the CPU in float32
    with TF32 off and the same RANSAC draws: identical candidate and
    survivor pairs, decisions equal except within 1 inlier or 0.01 of
@@ -225,22 +225,22 @@ Phases, one line each as they end:
    twins, under inference mode: (a) phase 3's pipeline and keyframes
    down the exact path, the budgeted path (``survivor_budget`` = the exact
    run's survivors), the one-fetch path (the keyframes already on the
-   card, ``monolithic=True``) and the pipelined path (host keyframes in
-   slices of 32): each once on one set of RANSAC draws (counts and pairs
-   equal to the exact path's, decisions within the bf16 band rule of
-   phase 7) with the calls of the methods that show the path taken, then
-   pairs/s (best of three after a warm-up), peak memory, one profiled run
-   (kernel time, busy share) and the card's synchronisations under
+   card, ``monolithic=True``) and the same path on host keyframes (one
+   upload; ``upload_chunk`` changes nothing): each once on one set of
+   RANSAC draws (counts and pairs equal to the exact path's, decisions
+   within the bf16 band rule of phase 7) with the calls of the methods
+   that show the path taken, then pairs/s (best of three after a
+   warm-up), peak memory, one profiled run (kernel time, busy share) and
+   the card's synchronisations under
    ``torch.cuda.set_sync_debug_mode("warn")``; a budget of 1 on the
    budgeted and one-fetch paths (the exact path reruns) and a threshold of
    2.0 (empty); (b) path A's CricaVPR and (c) path B through the one-fetch
    path (12 dense launches for the 128 frames in one encode call; 2 x
    depth flash launches for one fused call over every slot), each against
-   its exact run; (d) the pipelined path's host-to-device copies and the
-   share of them that ran beside a kernel, from (a)'s profile; (e) every
-   ``mlis_tpu_torch/experiments`` twin at one seed (loftr_heldout at 4)
-   with its outputs in a temporary directory; superglue_cut is reported as
-   not run where ``superglue_parallax.npz`` is not in the copy.
+   its exact run; (e) every ``mlis_tpu_torch/experiments`` twin at one
+   seed (loftr_heldout at 4) with its outputs in a temporary directory;
+   superglue_cut is reported as not run where ``superglue_parallax.npz``
+   is not in the copy.
 Phases 5, 6, 8, 9 and 12a run like phase 3 (warm-up, three timed runs, one
 profiled run), with every launch counter set to 0 before each run.
 
@@ -811,20 +811,21 @@ STAGES = ("gate.detect", "gate.encode", "gate.retrieval", "lightglue.match", "su
           "train.pairs", "train.forward", "train.backward", "train.update")
 
 
-def profile_gate(dev, pipe, inputs, gen, best_wall: float, encode_batch_size: int = 128) -> dict:
-    """One more gate run under torch.profiler (see :func:`profile_run`)."""
+def profile_gate(dev, pipe, inputs, gen, best_wall: float, encode_batch_size: int = 128,
+                 **kw) -> dict:
+    """One more gate run, with ``process``'s keywords ``kw``, under
+    torch.profiler (see :func:`profile_run`)."""
     images, timestamps, floors, K = inputs
     return profile_run(dev, lambda: pipe.process(images, timestamps, floors, K,
                                                  encode_batch_size=encode_batch_size,
-                                                 generator=gen),
+                                                 generator=gen, **kw),
                        best_wall)
 
 
-def profile_run(dev, run, best_wall: float, events_out=None) -> dict:
+def profile_run(dev, run, best_wall: float) -> dict:
     """``run()`` once under torch.profiler: device time per stage range and
     per kernel, and the device's busy share of the run's wall time. Returns
-    the device seconds of each stage range; a list ``events_out`` receives
-    every device event as (name, start_ns, duration_ns)."""
+    the device seconds of each stage range."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -838,10 +839,6 @@ def profile_run(dev, run, best_wall: float, events_out=None) -> dict:
     # minutes for a run of some 10^5 kernels (phase 7's ORB row)
     dev_events = [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
                   if e.device_type() == DeviceType.CUDA]
-    if events_out is not None:
-        events_out.extend((e.name(), e.start_ns(), e.duration_ns())
-                          for e in prof.profiler.kineto_results.events()
-                          if e.device_type() == DeviceType.CUDA)
     kernels = [(name, us) for name, us in dev_events if name not in STAGES]
     busy_us = sum(us for _, us in kernels)
     spans = {name: sum(us for n, us in dev_events if n == name) for name in STAGES}
@@ -881,7 +878,7 @@ def phase_main_path(dev, args, expected_sweep) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     budget = None  # bench.py's reps: the survivor count of the previous rep as the budget
-    for rep in range(TIMED_REPS + 1):
+    for rep in range(-1, TIMED_REPS + 1):
         pipe.spr.vpr.descriptors = []
         t0 = time.perf_counter()
         res = pipe.process(images, timestamps, floors, K, encode_batch_size=128,
@@ -889,13 +886,14 @@ def phase_main_path(dev, args, expected_sweep) -> dict:
         sync(dev)
         budget = res.verified or None
         wall = time.perf_counter() - t0
-        kind = "warmup (exact)" if rep == 0 else f"timed{rep} (pipelined)"
+        kind = {-1: "budget probe (exact)", 0: "warmup (one-fetch)"}.get(
+            rep, f"timed{rep} (one-fetch)")
         log(f"3 gate {kind}", t0, candidates=res.total_pairs,
             floor_rejected=res.cross_floor_rejected, verified=res.verified,
             accepted=res.geometrically_valid, pairs_per_s=f"{res.total_pairs / wall:.1f}",
             vpr_s=f"{res.vpr_s:.4f}", retrieval_s=f"{res.retrieval_s:.4f}",
             verify_s=f"{res.verify_s:.4f}")
-        if rep:
+        if rep > 0:
             runs.append((wall, res))
         if res.total_pairs <= 0 or res.verified != res.total_pairs - res.cross_floor_rejected:
             raise AssertionError(f"gate counts inconsistent: {res.summary()}")
@@ -910,7 +908,8 @@ def phase_main_path(dev, args, expected_sweep) -> dict:
     spans = {}
     if dev.type == "cuda":
         pipe.spr.vpr.descriptors = []
-        spans = profile_gate(dev, pipe, (images, timestamps, floors, K), gen, best_wall)
+        spans = profile_gate(dev, pipe, (images, timestamps, floors, K), gen, best_wall,
+                             survivor_budget=budget, monolithic=True)
     name = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu rehearsal"
     counts = launch_counts()
     launches = counts["tri_count"]
@@ -4259,11 +4258,14 @@ def phase_io(dev, args, main_path: dict) -> dict:
 
 # -- phase 16: the budget paths of FullGatePipeline.process, the experiment twins ----
 
-UPLOAD_CHUNK = 32  # 16a's pipelined path: frames a slice
-GATE_PATHS = ("exact", "budgeted", "one_fetch", "pipelined")
-# the methods whose calls show which path process took
+UPLOAD_CHUNK = 32  # bench.py's keyword, passed to show that it changes nothing
+# one_fetch_host: the one-fetch path on host keyframes, uploaded once
+GATE_PATHS = ("exact", "budgeted", "one_fetch", "one_fetch_host")
+# the methods whose calls show which path process took; ``_fetch`` is the
+# one packed fetch of the results (the matcher and RANSAC still synchronise
+# inside a fused call: 16a prints every path's synchronisations)
 PATH_METHODS = ("_verify_survivors", "_verify_compacted", "_verify_slots",
-                "_detect_encode_once", "_detect_encode_pipelined", "_fetch")
+                "_detect_encode_once", "_fetch")
 # 16a's decisions across paths on the same draws: the shipped bf16 models'
 # band of phase 7 (QUALITY_BANDS); the gate's verifier applies no confident cut
 GATE_PATH_BANDS = dict(conf_band=3, inlier_band=3, bound_inliers=False, confident_cut=None)
@@ -4292,24 +4294,21 @@ def counting_calls(pipe):
             delattr(pipe, name)
 
 
-def expected_calls(path: str, n: int, overflow: bool = False) -> dict:
+def expected_calls(path: str, overflow: bool = False) -> dict:
     want = dict.fromkeys(PATH_METHODS, 0)
     want["_verify_survivors"] = int(path == "exact" or overflow)
     if path != "exact":
         want["_fetch"] = 1
         want["_verify_compacted" if path == "budgeted" else "_verify_slots"] = 1
-    if path == "one_fetch":
+    if path.startswith("one_fetch"):
         want["_detect_encode_once"] = 1
-    if path == "pipelined":
-        want["_detect_encode_pipelined"] = 1
-        want["_detect_encode_once"] = -(-n // UPLOAD_CHUNK)
     return want
 
 
 def run_gate_path(pipe, path: str, inputs, images_dev, budget, **kw):
     """``pipe.process`` as each path takes it: host keyframes for the exact,
-    budgeted and pipelined paths, the frames already on the card for the
-    one-fetch path; bench.py's keywords."""
+    budgeted and one_fetch_host paths, the frames already on the card for
+    the one-fetch path; bench.py's keywords."""
     images, timestamps, floors, K = inputs
     pipe.spr.vpr.descriptors = []
     if hasattr(pipe.spr.vpr, "patch_cache"):
@@ -4339,35 +4338,6 @@ def check_same_gate(what: str, res, ref) -> None:
         raise AssertionError(f"{what}: verified pairs differ from the exact path's")
 
 
-def pipelined_decisions(pipe, inputs, res, ref, draws) -> None:
-    """The pipelined path detects and encodes in slices of UPLOAD_CHUNK
-    frames, and cuDNN's bf16 convolutions round differently at another
-    batch size: on these keyframes of flat 8-pixel cells, whose corner
-    scores tie, that moves SuperPoint's top-k choice. So its decisions are
-    held to the band rule against the exact path detecting and encoding in
-    the same slices, and their drift from the 128-frame batches is
-    reported."""
-    from mlis_tpu_torch.eval.quality import decision_drift
-
-    stats, broken = decision_drift(gate_pairs(res)["pairs"], gate_pairs(ref)["pairs"],
-                                   **GATE_PATH_BANDS)
-    print("  16a pipelined vs exact (128-frame detect and encode), same draws: "
-          + " ".join(f"{k}={v}" for k, v in stats.items()) + f" outside_band={len(broken)}",
-          flush=True)
-    images, timestamps, floors, K = inputs
-    detect_all = pipe._detect_all
-    pipe._detect_all = lambda imgs, detect_batch=UPLOAD_CHUNK: detect_all(imgs, UPLOAD_CHUNK)
-    try:
-        pipe.spr.vpr.descriptors = []
-        sliced = pipe.process(images, timestamps, floors, K, encode_batch_size=UPLOAD_CHUNK,
-                              ransac_uniforms=draws)
-    finally:
-        del pipe._detect_all
-    check_same_gate("16a exact in slices", sliced, ref)
-    compare_decisions(gate_pairs(res), gate_pairs(sliced), GATE_PATH_BANDS,
-                      f"16a pipelined vs exact in slices of {UPLOAD_CHUNK}, same draws")
-
-
 def count_syncs(dev, run) -> tuple:
     """Host synchronisations of the card during ``run()``, as
     torch.cuda.set_sync_debug_mode("warn") reports them: (the count, the
@@ -4389,29 +4359,12 @@ def count_syncs(dev, run) -> tuple:
     return sum(sites.values()), dict(sites.most_common())
 
 
-def copy_overlap(events) -> tuple:
-    """(seconds of host-to-device copies, the seconds of them during which a
-    kernel ran) from a profile's device events."""
-    copies = [(s, s + d) for name, s, d in events if "HtoD" in name]
-    busy = sorted((s, s + d) for name, s, d in events
-                  if name not in STAGES and not name.startswith("Memcpy")
-                  and not name.startswith("Memset"))
-    merged = []
-    for s, e in busy:
-        if merged and s <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], e)
-        else:
-            merged.append([s, e])
-    overlap = sum(max(0, min(e, me) - max(s, ms)) for s, e in copies for ms, me in merged)
-    return sum(e - s for s, e in copies) / 1e9, overlap / 1e9
-
-
 def phase_gate_paths(dev, args) -> dict:
-    """16a and 16d: bench.py's gate (phase 3's pipeline and keyframes) down
-    each path of ``process``, with the call counts that show the path taken,
+    """16a: bench.py's gate (phase 3's pipeline and keyframes) down each
+    path of ``process``, with the call counts that show the path taken,
     decisions against the exact path's on the same draws, pairs/s, kernel
     time, busy share, syncs and peak memory, then an overflow and an empty
-    gate; the pipelined path's copy / compute overlap from its profile."""
+    gate."""
     t0 = time.perf_counter()
     inputs = keyframes(args.keyframes)
     n = len(inputs[0])
@@ -4423,28 +4376,31 @@ def phase_gate_paths(dev, args) -> dict:
     k = min(pipe.top_k, n)
     slots = {"exact": budget, "budgeted": min(budget, n * k),
              "one_fetch": min(budget_slots(budget), n * k)}
-    slots["pipelined"] = slots["one_fetch"]
+    slots["one_fetch_host"] = slots["one_fetch"]
     draws = torch.rand((slots["one_fetch"], 512, 8), generator=gen, device=dev)
     log("16a setup", t0, keyframes=n, budget=budget, slots=json.dumps(slots),
         upload_chunk=UPLOAD_CHUNK)
 
-    ref, out = None, {}
+    ref, out, first = None, {}, {}
     for path in GATE_PATHS:
         t0 = time.perf_counter()
         with counting_calls(pipe) as calls:
             res = run_gate_path(pipe, path, inputs, images_dev, budget,
                                 ransac_uniforms=draws[: slots[path]])
-        if calls != expected_calls(path, n):
-            raise AssertionError(f"16a {path}: calls {calls}, expected {expected_calls(path, n)}")
+        first[path] = res
+        if calls != expected_calls(path):
+            raise AssertionError(f"16a {path}: calls {calls}, expected {expected_calls(path)}")
         if ref is None:
             ref = res
-        elif path == "pipelined":
-            check_same_gate(f"16a {path}", res, ref)
-            pipelined_decisions(pipe, inputs, res, ref, draws[:budget])
         else:
             check_same_gate(f"16a {path}", res, ref)
             compare_decisions(gate_pairs(res), gate_pairs(ref), GATE_PATH_BANDS,
                               f"16a {path} vs exact, same draws")
+        if path == "one_fetch_host":
+            same = sum(a == b for a, b in zip(gate_pairs(res)["pairs"],
+                                              gate_pairs(first["one_fetch"])["pairs"]))
+            print(f"  16a one_fetch_host vs one_fetch, same draws: {same} of {res.verified} "
+                  "pairs identical", flush=True)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         walls = []
@@ -4456,10 +4412,9 @@ def phase_gate_paths(dev, args) -> dict:
             check_same_gate(f"16a {path} timed", r, ref)
         peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
         best = min(walls[1:])
-        events = []
         if dev.type == "cuda":
             profile_run(dev, lambda: run_gate_path(pipe, path, inputs, images_dev, budget,
-                                                   generator=gen), best, events)
+                                                   generator=gen), best)
         syncs, sync_sites = count_syncs(dev, lambda: run_gate_path(
             pipe, path, inputs, images_dev, budget, generator=gen))
         out[path] = {"pairs_per_s": ref.total_pairs / best, "walls": walls[1:]}
@@ -4470,11 +4425,6 @@ def phase_gate_paths(dev, args) -> dict:
             calls=json.dumps({k: v for k, v in calls.items() if v}, separators=(",", ":")))
         if sync_sites:
             print(f"  16a {path} syncs by site: " + json.dumps(sync_sites), flush=True)
-        if path == "pipelined" and events:
-            copy_s, overlap_s = copy_overlap(events)
-            log("16d pipelined overlap", time.perf_counter(), htod_copy_s=f"{copy_s:.6f}",
-                copy_during_kernels_s=f"{overlap_s:.6f}",
-                overlap_share=f"{overlap_s / copy_s:.4f}" if copy_s else "nan")
 
     # overflow: a budget of 1 (16 slots on the monolithic paths) reruns exact
     t0 = time.perf_counter()
@@ -4483,7 +4433,7 @@ def phase_gate_paths(dev, args) -> dict:
         with counting_calls(pipe) as calls:
             res = run_gate_path(pipe, path, inputs, images_dev, 1,
                                 generator=torch.Generator(device=dev).manual_seed(1))
-        want = expected_calls(path, n, overflow=True)
+        want = expected_calls(path, overflow=True)
         if calls != want:
             raise AssertionError(f"16a {path} budget 1: calls {calls}, expected {want}")
         check_same_gate(f"16a {path} budget 1", res, ref)
@@ -4522,7 +4472,7 @@ def drive_one_fetch(phase: str, dev, pipe, inputs, expected_launches) -> dict:
             sync(dev)
             wall = time.perf_counter() - t0
         counts = launch_counts()
-        if calls != expected_calls("one_fetch", n):
+        if calls != expected_calls("one_fetch"):
             raise AssertionError(f"{phase}: calls {calls}")
         check_same_gate(phase, res, ref)
         if dev.type == "cuda" and counts != expected_launches:
@@ -4620,7 +4570,11 @@ def twin_summary(d: dict) -> dict:
 def phase_twins(dev) -> None:
     """16e: each experiment twin's ``main`` at one seed on the card, its
     outputs in a temporary directory; superglue_cut only where its
-    checkpoint is in the copy."""
+    checkpoint is in the copy. One configuration runs twice, in two
+    twins: fullres_matcher_quality's fullres_trained row and
+    fullres_pruning_quality's match_top_k=1024 row (the harness's default
+    weights at 540 rows are that checkpoint); with RANSAC's draws seeded
+    from the scene's seed, the two must read the same."""
     import importlib
     import tempfile
 
@@ -4630,6 +4584,7 @@ def phase_twins(dev) -> None:
         print("  16e: the twins run on the card (tier-1 runs each at a small size: "
               "tests/test_torch_experiments.py)", flush=True)
         return
+    lines = {}
     with tempfile.TemporaryDirectory(prefix="mlis_phase16_") as tmp:
         for name, argv in TWIN_RUNS:
             t0 = time.perf_counter()
@@ -4650,6 +4605,7 @@ def phase_twins(dev) -> None:
                                  if x.startswith("{")]}
                 if len(res["lines"]) != 2:
                     raise AssertionError(f"16e {name}: {len(res['lines'])} JSON lines, expected 2")
+                lines[name] = res["lines"]
                 summary = {f"{x['seed']}_{x.get('ckpt', x.get('match_top_k'))}": x["f1"]
                            for x in res["lines"]}
             else:
@@ -4661,6 +4617,13 @@ def phase_twins(dev) -> None:
             log(f"16e {name}", t0, run=True, argv=json.dumps(argv),
                 summary=json.dumps(summary, separators=(",", ":")),
                 launches=json.dumps(launch_counts(), separators=(",", ":")))
+    first = next(x for x in lines["fullres_matcher_quality"] if x["ckpt"] == "fullres_trained")
+    again = next(x for x in lines["fullres_pruning_quality"] if x["match_top_k"] == 1024)
+    pairs = {k: [first[k], again[k]] for k in ("f1", "precision", "recall")}
+    log("16e repeat", time.perf_counter(), seed=first["seed"],
+        runs=json.dumps(pairs, separators=(",", ":")))
+    if any(a != b for a, b in pairs.values()):
+        raise AssertionError(f"16e: one configuration run twice reads {pairs}")
 
 
 def phase_budget_paths(dev, args) -> dict:

@@ -576,7 +576,9 @@ def run_gate_quality(
     per-pair outcomes, when ``return_pairs``; each also carries its inlier
     ratio, which the reference's pairs leave out). ``ransac_uniforms`` goes
     straight to ``FullGatePipeline.process``: (n_survivors, 512, 8) draws,
-    one block per survivor in compaction order. ``model_dtype`` and
+    one block per survivor in compaction order. Without them RANSAC draws
+    from a generator seeded with ``seed``, so a call repeats on one device,
+    as the reference's fixed keys do. ``model_dtype`` and
     ``loftr_match_threshold`` go to ``build_verifier``."""
     from mlis_tpu_torch.gating.full_gate import FullGatePipeline
 
@@ -604,7 +606,8 @@ def run_gate_quality(
     # verification; decisions are still scored against the real floors
     fl = scene.floors if floor_gate else np.zeros_like(scene.floors)
     res = pipe.process(scene.images, scene.timestamps, fl, scene.K, encode_batch_size=64,
-                       ransac_uniforms=ransac_uniforms)
+                       ransac_uniforms=ransac_uniforms,
+                       generator=torch.Generator(device=device).manual_seed(seed))
     m = score_gate_decisions(res, scene)
     rr = (retrieval_recall(scene, enc_fn, top_k=top_k, threshold=similarity_threshold,
                            device=device)
@@ -667,7 +670,8 @@ def run_gate_quality_rerank(
     end-decision value. ``crica`` reuses one encoder across the A/B pair
     (its patch cache is refilled); without it the shipped ``vpr_crica.npz``
     is loaded, or a random CricaVPR when it is not there.
-    ``ransac_uniforms`` is as in :func:`run_gate_quality`."""
+    ``ransac_uniforms`` is as in :func:`run_gate_quality`; without them
+    RANSAC draws from a generator seeded with 0."""
     from mlis_tpu_torch.gating.full_gate import FullGatePipeline
     from mlis_tpu_torch.gating.gate import gate_mask
 
@@ -716,7 +720,8 @@ def run_gate_quality_rerank(
     if len(survivors):
         qs, ms = (torch.as_tensor(survivors[:, c], device=device) for c in (0, 1))
         results = pipe._verify_survivors(pipe._detect_all(imgs), qs, ms, scene.K,
-                                         tuple(imgs.shape[1:3]), ransac_uniforms, None)
+                                         tuple(imgs.shape[1:3]), ransac_uniforms,
+                                         torch.Generator(device=device).manual_seed(0))
     res = SimpleNamespace(results=results, total_pairs=total, cross_floor_rejected=rejected,
                           verified=len(results))
     m = score_gate_decisions(res, scene)

@@ -16,20 +16,23 @@ Counterpart of ``mlis_tpu/gating/full_gate.py``. Stage order:
    converted once) through ``GeometricVerifier.verify_pairs_batch`` with
    ``batch_size=verify_batch``; no keypoints are detected up front.
 
-``process`` runs one of four paths, as the JAX package does:
+``process`` runs one of three paths, as the JAX package does:
 
 * the exact two-phase path above (no ``survivor_budget``);
 * the budgeted path (``survivor_budget`` set): stage 2 compacts the
   survivors into a static number of slots on the device, the fused
-  matcher runs over them in power-of-two buckets, and one host fetch
+  matcher runs over them in power-of-two buckets, and one packed fetch
   brings back every pair, result and count;
-* the one-fetch path (``monolithic=True``, keyframes already a tensor on
-  the pipeline's device): detect and encode every frame in one call each,
-  the static gate, one fused call over all slots, one fetch;
-* the pipelined path (``monolithic=True``, host keyframes): slices of
-  ``upload_chunk`` frames copied from pinned memory on a copy stream while
-  the compute stream detects and encodes the slice before, then the same
-  tail as the one-fetch path.
+* the one-fetch path (``monolithic=True``): the keyframes uploaded once
+  (not copied when already on the pipeline's device), detect and encode
+  of every frame in one call each, the static gate, one fused call over
+  all slots, one packed fetch. ``upload_chunk`` changes nothing here: the
+  JAX package uploads host keyframes in slices to hide a high-latency link
+  to its TPU, and its sliced program is pinned bit-identical to the
+  single one, so one upload gives the same result.
+
+"One packed fetch" is the results' single device-to-host copy; the
+matcher and RANSAC still synchronise with the host inside a fused call.
 
 A budget path whose survivors overflow its slots runs the exact path's
 retrieval and verification on the keypoints and descriptors it already
@@ -63,17 +66,6 @@ from mlis_tpu_torch.ops.knn import cosine_topk
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _same_device(a: torch.device, b: torch.device) -> bool:
-    """``cuda`` and ``cuda:0`` name one card when 0 is the current one."""
-    if a.type != b.type:
-        return False
-    if a.type != "cuda" or a.index == b.index:
-        return True
-    current = torch.cuda.current_device()
-    return (a.index if a.index is not None else current) == (
-        b.index if b.index is not None else current)
 
 
 def _gate_compact(
@@ -274,11 +266,11 @@ class FullGatePipeline:
         """survivor_budget: with a fused matcher and an encoder with
         ``encode_batch_device``, retrieval, dedup, floor gate and
         compaction fill min(survivor_budget, n * k) static slots on the
-        device, and verification ends in one host fetch. monolithic (with a
-        budget): the one-fetch path for keyframes already on the device,
-        the pipelined path (``upload_chunk`` frames a slice) for host
-        keyframes; both round the budget up by :meth:`_budget_slots`. An
-        overflow reruns the exact path, so no result depends on the budget.
+        device, and verification ends in one packed fetch. monolithic (with
+        a budget): the one-fetch path, which rounds the budget up by
+        :meth:`_budget_slots`; ``upload_chunk`` is accepted for the JAX
+        package's signature and changes nothing. An overflow reruns the
+        exact path, so no result depends on the budget.
 
         ransac_uniforms: RANSAC's draws, one (num_hypotheses, 8) block per
         verified pair: (n_survivors, ...) in compaction order on the exact
@@ -290,7 +282,7 @@ class FullGatePipeline:
 
         Stage seconds: on the budget paths the split is indicative only
         (work is queued, not finished, when a stage's clock stops; the
-        monolithic paths leave ``retrieval_s`` at 0 with the gate inside
+        one-fetch path leaves ``retrieval_s`` at 0 with the gate inside
         ``verify_s``), and ``elapsed_s`` is what compares across paths.
 
         ``images`` may be a tensor already on the device (as bench.py passes
@@ -307,15 +299,15 @@ class FullGatePipeline:
         floors = torch.as_tensor(np.asarray(floor_labels).astype(np.int64), device=dev)
         hw = (int(images.shape[1]), int(images.shape[2]))
         gen_state = generator.get_state() if budget_ok and generator is not None else None
+        if not isinstance(images, torch.Tensor):
+            images = np.ascontiguousarray(images)
+        imgs = torch.as_tensor(images, device=dev)  # no copy when already there
 
         if budget_ok and monolithic:
             M = int(min(self._budget_slots(min(survivor_budget, n * k)), n * k))
             uniforms = self._slot_uniforms(ransac_uniforms, M)
             times = torch.as_tensor(np.asarray(timestamps, np.float32), device=dev)
-            if isinstance(images, torch.Tensor) and _same_device(images.device, dev):
-                kp_all, db = self._detect_encode_once(images)
-            else:
-                kp_all, db = self._detect_encode_pipelined(images, upload_chunk)
+            kp_all, db = self._detect_encode_once(imgs)
             res.vpr_s = time.perf_counter() - t_start
             t0 = time.perf_counter()
             out = self._verify_slots(kp_all, db, times, floors, K, hw, k, M, uniforms, generator)
@@ -323,9 +315,6 @@ class FullGatePipeline:
                 return self._finish(res, out, t0, t_start)
         else:
             # 1) keypoints once per keyframe + VPR descriptors, device-resident
-            if not isinstance(images, torch.Tensor):
-                images = np.ascontiguousarray(images)
-            imgs = torch.as_tensor(images, device=dev)
             with record_function("gate.detect"):
                 kp_all = self._detect_all(imgs) if fused_ok else None
             if encode_dev is not None:
@@ -442,39 +431,6 @@ class FullGatePipeline:
             db = self.spr.vpr.encode_batch_device(imgs)
         return kp_all, db
 
-    def _detect_encode_pipelined(self, images, upload_chunk: int) -> Tuple[Keypoints, torch.Tensor]:
-        """Host keyframes in slices of ``upload_chunk`` frames: on the card
-        every slice's copy from pinned memory is queued on a copy stream at
-        once, and the compute stream waits on each slice's event before it
-        detects and encodes that slice, so slice i + 1 copies while slice i
-        computes. On the CPU the same slices run in order."""
-        dev = self.device
-        host = images.cpu() if isinstance(images, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(images))
-        n, uc = int(host.shape[0]), max(int(upload_chunk), 1)
-        bounds = [(s, min(s + uc, n)) for s in range(0, n, uc)]
-        if dev.type == "cuda":
-            host = host.pin_memory()
-            copy, compute = torch.cuda.Stream(dev), torch.cuda.current_stream(dev)
-            staged = []
-            with torch.cuda.stream(copy):
-                for s, e in bounds:
-                    part = host[s:e].to(dev, non_blocking=True)
-                    staged.append((part, copy.record_event()))
-            parts = []
-            for part, done in staged:
-                compute.wait_event(done)
-                part.record_stream(compute)
-                parts.append(part)
-        else:
-            parts = [host[s:e].to(dev) for s, e in bounds]
-        kp_parts, db_parts = [], []
-        for part in parts:
-            kp, db = self._detect_encode_once(part)
-            kp_parts.append(kp)
-            db_parts.append(db)
-        return Keypoints(*(torch.cat(xs) for xs in zip(*kp_parts))), torch.cat(db_parts)
-
     def _verify_gray_pairs(self, imgs, qi, mi, K, uniforms, generator) -> List[MatchResult]:
         """Survivors as grayscale pairs through ``verify_pairs_batch`` in
         chunks of ``verify_batch`` (LoFTR, ORB)."""
@@ -500,7 +456,7 @@ class FullGatePipeline:
 
     def _verify_survivors(self, kp_all, qi, mi, K, hw, uniforms, generator) -> List[MatchResult]:
         """The exact path's verify: fused over the survivors in chunks of
-        ``verify_batch``, one fetch."""
+        ``verify_batch``, one packed fetch."""
         fused = self._get_fused(hw, K)
         S, B = qi.numel(), self.verify_batch
         if uniforms is not None and tuple(uniforms.shape) != (S, self.num_hypotheses, 8):
@@ -519,8 +475,8 @@ class FullGatePipeline:
     def _verify_compacted(self, kp_all, qi_all, mi_all, stats, K, hw, uniforms, generator):
         """The budgeted path's verify: the fused matcher over the M slots in
         :meth:`_bucket_sizes` buckets (the last may hold fewer than its
-        size), every bucket's rows and the stats row fetched once. None on
-        an overflow."""
+        size), every bucket's rows and the stats row in one packed fetch.
+        None on an overflow."""
         fused = self._get_fused(hw, K)
         M = int(qi_all.numel())
         rows, s = [], 0
@@ -532,8 +488,8 @@ class FullGatePipeline:
         return self._parse_packed(self._fetch(torch.cat(rows + [_stats_row(stats)])), M)
 
     def _verify_slots(self, kp_all, db, times, floors, K, hw, k, M, uniforms, generator):
-        """The monolithic paths' tail: the static gate, one fused call over
-        all M slots, one fetch. None on an overflow."""
+        """The one-fetch path's tail: the static gate, one fused call over
+        all M slots, one packed fetch. None on an overflow."""
         with record_function("gate.retrieval"):
             qi, mi, stats = _gate_compact(db, times, floors, k=k, M=M, **self._gate_kw())
         out = self._get_fused(hw, K)(kp_all, qi, mi, uniforms=uniforms, generator=generator)
@@ -542,7 +498,7 @@ class FullGatePipeline:
 
     @staticmethod
     def _fetch(packed: torch.Tensor) -> np.ndarray:
-        """The budget paths' one host fetch of the packed (M + 1, 33) rows."""
+        """The budget paths' one packed fetch of the (M + 1, 33) rows."""
         return packed.cpu().numpy()
 
     def _parse_packed(self, flat: np.ndarray, M: int):

@@ -1,6 +1,8 @@
 """The port's twins of experiments/*.py: superglue_cut's scoring and cut
-selection against the script's own, and each twin's ``main`` on the CPU
-at a small size.
+selection against the script's own; every twin against its script on the
+same deterministic stand-ins for the harness, the loaders and the
+checkpoints (written JSON and printed lines equal); and each twin's
+``main`` on the CPU at a small size.
 
 The small size: every scene maker returns 2 floors x 2 places (v2) or 2
 places (v1) at 135x180, and the harness detects 64 keypoints in float32
@@ -15,7 +17,12 @@ import importlib
 import importlib.util
 import json
 import math
+import os
+import re
+import sys
+import zlib
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -233,3 +240,151 @@ def test_twin_outputs_default_under_results_torch():
                 mod.main([])
         assert seen["out"] == f"results/torch/{committed or name + '.json'}"
         assert seen["device"] == "cuda"
+
+
+# -- every twin against its script on shared stand-ins ------------------------------
+
+
+def _key(args, kw) -> str:
+    """A call's arguments less ``device``, scenes and encoders by their
+    names: what both sides must pass alike."""
+    kw = {k: v for k, v in kw.items() if k != "device"}
+    name = lambda v: getattr(v, "name", v)  # noqa: E731
+    return repr(([name(a) for a in args], sorted((k, name(v)) for k, v in kw.items())))
+
+
+def _rng(*parts) -> np.random.Generator:
+    return np.random.default_rng(zlib.crc32(repr(parts).encode()))
+
+
+def _scene(kind):
+    def make(*args, **kw):
+        rng = _rng(kind, _key(args, kw))
+        gt = sorted({(int(a), int(a) + int(d)) for a, d in zip(rng.integers(0, 20, 8),
+                                                                  rng.integers(1, 6, 8))})
+        return SimpleNamespace(name=f"{kind}{_key(args, kw)}", gt_pairs=gt)
+    return make
+
+
+def _gate(*args, **kw):
+    """run_gate_quality: the scores, the weights' file and, with
+    ``return_pairs``, per-pair captures, all drawn from the call."""
+    rng = _rng("gate", _key(args, kw))
+    out = {k: float(rng.random()) for k in ("f1", "precision", "recall", "retrieval_recall")}
+    out["weights"] = os.path.basename(kw.get("weights_path") or f"default_{args[0]}.npz")
+    out["pairs"] = [{"q": int(a), "m": int(a) + int(d), "is_valid": bool(v),
+                     "num_inliers": int(n), "inlier_ratio": float(r),
+                     "num_confident_matches": int(c)}
+                    for a, d, v, n, r, c in zip(rng.integers(0, 20, 30), rng.integers(1, 6, 30),
+                                                rng.random(30) < 0.7, rng.integers(0, 80, 30),
+                                                rng.random(30), rng.integers(-1, 31, 30))
+                    ] if kw.get("return_pairs") else None
+    return out
+
+
+def _scores(tag, fields):
+    def run(*args, **kw):
+        rng = _rng(tag, _key(args, kw))
+        return {k: float(rng.random()) for k in fields}
+    return run
+
+
+def _loader(tag, missing=()):
+    def load(*args, **kw):
+        token = f"{tag}{_key(args, kw)}"
+        return None if kw.get("arch") in missing else SimpleNamespace(
+            name=token, encode_batch_device=SimpleNamespace(name=f"{token}.encode"))
+    return load
+
+
+STANDINS = {
+    "make_quality_scene": _scene("v1"),
+    "make_quality_scene_v2": _scene("v2"),
+    "run_gate_quality": _gate,
+    "run_gate_quality_rerank": _scores("rerank", ("f1", "precision", "recall")),
+    "retrieval_metrics": _scores("retrieval", ("retrieval_recall", "aliased_rate")),
+    "_pixel_encoder": SimpleNamespace(name="pixel"),
+    "default_parallax_matcher_checkpoint": lambda: "checkpoints/lightglue_parallax.npz",
+    "default_parallax_superglue_checkpoint": lambda: "checkpoints/superglue_parallax.npz",
+    "default_parallax_loftr_checkpoint": lambda: "checkpoints/loftr_parallax.npz",
+    "load_encoder": _loader("encoder", missing=("anyloc",)),
+    "load_mixvpr_vpr": _loader("mixvpr"),
+    "load_crica_tiny_vpr": _loader("crica_tiny"),
+}
+
+# (twin, argv): several seeds each, so that a row read from the wrong seed shows
+SCRIPT_RUNS = [
+    ("v2_scoreboard", ["--seeds", "0,1,2"]),
+    ("encoder_rows", ["--seeds", "0,1"]),
+    ("encoder_intervention", ["--seeds", "0,1,2"]),
+    ("rerank_quality", ["--seeds", "0,1"]),
+    ("superglue_cut", ["--seeds", "0,1,2,3", "--select-seeds", "0,1"]),
+    ("loftr_heldout", ["--seeds", "4,5"]),
+    ("loftr_heldout", ["--seeds", "4", "--threshold", "0.1"]),
+    ("fullres_matcher_quality", ["0", "1"]),
+    ("fullres_pruning_quality", ["0", "1"]),
+]
+
+
+def _printed(captured) -> tuple:
+    """stdout and stderr with the wall clock taken out: the seconds in the
+    progress lines and the fullres lines' ``wall_s``."""
+    out = [json.dumps({k: v for k, v in json.loads(x).items() if k != "wall_s"})
+           if x.startswith("{") and x.endswith("}") else x for x in captured.out.splitlines()]
+    return out, re.sub(r"\d+\.\ds\b", "<t>s", captured.err)
+
+
+@pytest.mark.parametrize("name,argv", SCRIPT_RUNS,
+                         ids=[f"{n}-{'-'.join(a)}" for n, a in SCRIPT_RUNS])
+def test_twin_matches_its_script(tmp_path, monkeypatch, capsys, name, argv):
+    """The script (its harness, weights and loaders patched in the JAX
+    package's modules before it imports them) and the twin (the same
+    stand-ins patched into its module) write the same JSON and print the
+    same lines. Every stand-in draws its outputs from its arguments, so a
+    twin that passes other arguments, reads another field, mixes up seeds
+    or rounds differently does not pass."""
+    jax_mods = [importlib.import_module(m) for m in (
+        "mlis_tpu.eval.quality", "mlis_tpu.models.weights", "mlis_tpu.train.pretrain_vpr")]
+    twin = importlib.import_module(f"mlis_tpu_torch.experiments.{name}")
+    for mod in jax_mods + [twin]:
+        for attr, standin in STANDINS.items():
+            if hasattr(mod, attr):
+                monkeypatch.setattr(mod, attr, standin)
+    monkeypatch.chdir(tmp_path)  # superglue_cut's script makes results/ in the working directory
+    script = _reference_script(name)
+    fullres = name.startswith("fullres")
+    runs = {}
+    for side in ("script", "twin"):
+        out = tmp_path / f"{side}_{name}.json"  # the script makes no directory for it
+        if fullres:
+            monkeypatch.setattr(sys, "argv", [name] + argv)
+            script.main() if side == "script" else twin.main(argv + ["--device", "cpu"])
+        else:
+            extra = ["--out", str(out)]
+            script.main(argv + extra) if side == "script" else twin.main(
+                argv + extra + ["--device", "cpu"])
+        runs[side] = _printed(capsys.readouterr())
+        if not fullres:
+            runs[side] += (json.loads(out.read_text()),)
+        if name == "superglue_cut":
+            runs[side] += (json.loads(Path(f"{out}.partial").read_text()),)
+    assert runs["twin"] == runs["script"]
+    assert runs["twin"][0], "the twin printed nothing"
+
+
+def test_gate_quality_repeats_at_one_seed():
+    """Without ``ransac_uniforms`` the harness draws RANSAC's hypotheses
+    from a generator seeded with ``seed``: two calls read the same, however
+    the global stream moved between them (the twins' scoreboards repeat)."""
+    scene = _small_v1(device="cpu")
+    kw = dict(scene=scene, max_keypoints=64, model_dtype=torch.float32, return_pairs=True,
+              seed=3, device="cpu")
+    torch.manual_seed(0)
+    first = q.run_gate_quality("trained", **kw)
+    torch.manual_seed(1)
+    torch.rand(1000)
+    again = q.run_gate_quality("trained", **kw)
+    assert first["pairs"], "the small scene verified no pair"
+    assert again["pairs"] == first["pairs"]
+    assert (again["f1"], again["precision"], again["recall"]) == (
+        first["f1"], first["precision"], first["recall"])
