@@ -11,9 +11,12 @@ Phases, one line each as they end:
 1. build: one nvcc call over mlis_tpu_torch/csrc/*.cu (ptxas report);
 2. kernel K1 (the candidate sweep) against its plain PyTorch version on
    the card: the 19,163-pose cloud, a clustered cloud with pairs at r and
-   r +- 1e-9, and that cloud again through the full tile grid (the launch
-   of the JAX package's full-grid kernel K6); counts must be identical;
-   its bound counts FP64 issue slots, beside the data sheet's FLOP figure;
+   r +- 1e-9, that cloud again through the full tile grid (the launch of
+   the JAX package's full-grid kernel K6), and clouds of DROID-SLAM's
+   1,926 and LeGO-LOAM's 2,406 poses; counts must be identical (to the
+   float64 host sweep too, up to 5,000 poses); each case prints its tiles,
+   the blocks the wrapper cuts them into, and its time beside its bound,
+   which counts FP64 issue slots, beside the data sheet's FLOP figure;
 2b. the attention kernels (csrc/attention.cu) against their plain
    versions on the card, bf16 inputs from a seed: the dense kernel (TPU
    kernels K4/K5) at the ViT-B/14 shape of path A, without a bias and
@@ -277,6 +280,7 @@ H100_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (NVIDIA data sheet
 H100_HBM_BYTES_S = 3.35e12
 RADIUS, MIN_GAP = 2.0, 100
 SWEEP_POSES = 19163  # ORB-SLAM3 scale (bench.py:85-91)
+DROID_POSES, LEGO_POSES = 1926, 2406  # the published trajectories (tests/test_parity_reference.py)
 TIMED_REPS = 3
 SMALL_KEYFRAMES = 16  # phase 4
 ENCODE_BATCH = 64  # FullGatePipeline.process's default encode batch (paths A, B)
@@ -405,7 +409,9 @@ def ptxas_report(text: str):
             dtype = re.search(r"(bfloat16|__half)", mangled)
             dims = re.findall(r"Li(\d+)E", mangled)
             dense = re.search(r"Lb([01])E", mangled)
-            if dims:
+            if dims and name == "tri_count_kernel":
+                name += f"<row strips 2^{dims[0]}>"
+            elif dims:
                 name += (f"<{dtype.group(1).strip('_') if dtype else 'float'}, Dh {dims[0]}, "
                          f"{'dense' if dense and dense.group(1) == '1' else 'flash'}>")
             out.append([name, ""])
@@ -414,30 +420,46 @@ def ptxas_report(text: str):
     return [tuple(x) for x in out]
 
 
-def time_kernel_ms(pos, fl, ti, tj, r2, reps: int = 50) -> float:
-    """Mean device time of one K1 launch, CUDA events over ``reps`` launches
-    after a warm-up (the raw C entry point: no host work between launches)."""
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one ``fn`` call: CUDA events around one replay of a
+    CUDA graph of ``reps`` calls (launches from Python cannot keep a
+    kernel of a few microseconds fed)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_kernel_ms(pos, fl, ti, tj, r2, log_split: int, reps: int = 50) -> float:
+    """Mean device time of one K1 launch with 2**log_split blocks a tile
+    (the raw C entry point), after a warm-up: :func:`graph_ms`."""
     import ctypes
 
     from mlis_tpu_torch import _build
 
     lib = _build.library()
     out = torch.zeros(2, dtype=torch.int64, device=pos.device)
-    stream = torch.cuda.current_stream(pos.device).cuda_stream
     argv = [ctypes.c_void_p(t.data_ptr()) for t in (pos, fl, ti, tj)] + [
         ctypes.c_int(int(ti.numel())), ctypes.c_int(int(pos.shape[0])),
-        ctypes.c_int(MIN_GAP), ctypes.c_double(r2), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(stream)]
+        ctypes.c_int(MIN_GAP), ctypes.c_double(r2), ctypes.c_int(log_split),
+        ctypes.c_void_p(out.data_ptr())]
+
+    def launch():
+        stream = ctypes.c_void_p(torch.cuda.current_stream(pos.device).cuda_stream)
+        _build.check(lib.mlis_tri_count(*argv, stream), "tri_count")
+
     for _ in range(3):
-        _build.check(lib.mlis_tri_count(*argv), "tri_count")
+        launch()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        _build.check(lib.mlis_tri_count(*argv), "tri_count")
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return graph_ms(launch, reps)
 
 
 def phase_kernel_check(dev) -> dict:
@@ -448,12 +470,16 @@ def phase_kernel_check(dev) -> dict:
     stats = {}
     cases = [("a_orbslam_scale", *orbslam_scale_cloud(SWEEP_POSES), "tri"),
              ("b_boundary", *boundary_cloud(), "tri"),
-             ("c_boundary_all_tiles", *boundary_cloud(), "all")]
+             ("c_boundary_all_tiles", *boundary_cloud(), "all"),
+             ("d_droid_scale", *orbslam_scale_cloud(DROID_POSES), "tri"),
+             ("e_lego_scale", *orbslam_scale_cloud(LEGO_POSES), "tri")]
     max_err = 0
     for name, positions, floors, tiles in cases:
         pos, fl, ti, tj = pw.pack_sweep_inputs(positions, floors, MIN_GAP, dev)
         if tiles == "all":
             ti, tj = (torch.as_tensor(t, device=dev) for t in pw.all_tiles(pos.shape[0]))
+        # the wrapper's cut of each tile into blocks, from the card's SM count
+        log_split = (pw.sweep_split(ti.numel(), pw.sm_count(dev)) if dev.type == "cuda" else 0)
         got = pw.tri_count(pos, fl, ti, tj, MIN_GAP, r2)
         sync(dev)
         tp = time.perf_counter()
@@ -468,10 +494,13 @@ def phase_kernel_check(dev) -> dict:
         if got != want or got != host:
             raise AssertionError(f"K1 {name}: kernel {got} plain {want} host float64 {host}")
         fields = {"case": name, "n": pos.shape[0], "tiles": int(ti.numel()),
+                  "log_split": log_split, "blocks": int(ti.numel()) << log_split,
+                  "blocks_that_pair": len(pw.split_blocks(ti.cpu().numpy(), tj.cpu().numpy(),
+                                                          pos.shape[0], MIN_GAP, log_split)),
                   "total": got[0], "same_floor": got[1], "cross_floor": got[0] - got[1],
                   "plain_ms": f"{plain_ms:.3f}"}
         if dev.type == "cuda":
-            fields["kernel_ms"] = f"{time_kernel_ms(pos, fl, ti, tj, r2):.4f}"
+            fields["kernel_ms"] = f"{time_kernel_ms(pos, fl, ti, tj, r2, log_split):.5f}"
         # the loop bounds skip pairs with j - i < min_gap, so every case
         # (the full tile grid too) computes the index-valid pairs only
         pairs = pw.index_valid_pairs(pos.shape[0], MIN_GAP)
@@ -482,13 +511,17 @@ def phase_kernel_check(dev) -> dict:
         t_ops, t_bytes = ops / H100_FP64_ISSUE, nbytes / H100_HBM_BYTES_S
         bound_ms = max(t_ops, t_bytes) * 1e3
         flop_bound_ms = max(ops / H100_FP64_FLOPS, t_bytes) * 1e3  # the data-sheet figure
-        fields.update(pair_distances=pairs, bound_ms=f"{bound_ms:.4f}",
-                      flop_bound_ms=f"{flop_bound_ms:.4f}")
+        fields.update(pair_distances=pairs, bound_ms=f"{bound_ms:.6f}",
+                      flop_bound_ms=f"{flop_bound_ms:.6f}")
         if name.startswith("a_"):
             stats = {"sweep_counts": got,
                      "ms": float(fields.get("kernel_ms", "nan")), "plain_ms": plain_ms,
                      "bound_ms": bound_ms,
-                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes", "by_case": {}}
+        stats["by_case"][name] = {"n": pos.shape[0], "tiles": int(ti.numel()),
+                                  "blocks": fields["blocks"], "bound_ms": bound_ms,
+                                  "plain_ms": plain_ms,
+                                  "ms": float(fields.get("kernel_ms", "nan"))}
         print("  K1 " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
     stats["max_abs_err"] = max_err
     log("2 K1 vs plain", t0, identical=True, launches_so_far=pw.tri_count.launches)
@@ -4717,6 +4750,7 @@ def main() -> int:
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the floor-split count
+        "by_case": k1["by_case"],  # phase 2's other sizes, each with its bound
     }, {
         "name": "flash_attention",
         "route": "cuda",

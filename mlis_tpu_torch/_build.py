@@ -114,7 +114,7 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build()["path"])
         p, i, d, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
-        lib.mlis_tri_count.argtypes = [p, p, p, p, i, i, i, d, p, p]
+        lib.mlis_tri_count.argtypes = [p, p, p, p, i, i, i, d, i, p, p]
         lib.mlis_tri_count.restype = ctypes.c_int
         strides = ctypes.POINTER(ll)  # 12 element strides: (b, l, h) of q, k, v, out
         lib.mlis_flash_attention.argtypes = [p, p, p, p, p, strides, i, i, i, i, i, i, p]

@@ -12,9 +12,12 @@ The pair space is cut into 512x512 (ti, tj) tiles; only tiles whose largest
 column index reaches ``min_gap`` past their smallest row index are listed
 (:func:`tile_list`, built exactly as the JAX ``candidate_counts`` builds
 it). :func:`tri_count` counts the listed tiles: on a CUDA tensor it launches
-the hand-written kernel ``csrc/pairwise.cu`` (which replaces the TPU kernel
-``_tri_count_kernel``), on a CPU tensor it runs :func:`tri_count_plain`,
-the same float64 arithmetic as tiled torch code.
+the hand-written kernel ``csrc/pairwise.cu`` (which replaces the TPU kernels
+``_tri_count_kernel`` and ``_count_kernel``), on a CPU tensor it runs
+:func:`tri_count_plain`, the same float64 arithmetic as tiled torch code.
+The kernel cuts each listed tile into ``2**log_split`` blocks
+(:func:`sweep_split` picks the cut from the tile count and the card's SM
+count; :func:`split_blocks` spells the cut out).
 """
 
 from __future__ import annotations
@@ -27,6 +30,12 @@ import torch
 
 TILE = 512
 _COL_CHUNK = 8 * TILE  # columns per step of the plain version
+MAX_LOG_SPLIT = 8  # the kernel cuts a tile into at most 256 blocks of 32 x 32
+# the automatic cut: blocks of at most 256 x 128 (8 a tile), then enough
+# blocks for every SM to get 8, in at most 64 blocks of 64 x 64 a tile
+MIN_AUTO_LOG_SPLIT = 3
+BLOCKS_PER_SM = 8
+MAX_AUTO_LOG_SPLIT = 6
 
 
 def tile_list(n: int, min_gap: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -51,6 +60,40 @@ def all_tiles(n: int) -> Tuple[np.ndarray, np.ndarray]:
         np.ascontiguousarray(ti.ravel(), np.int32),
         np.ascontiguousarray(tj.ravel(), np.int32),
     )
+
+
+def sweep_split(n_tiles: int, sms: int) -> int:
+    """log2 of the blocks the kernel cuts each listed tile into: the least
+    power of two from ``2**MIN_AUTO_LOG_SPLIT`` that gives the grid
+    ``BLOCKS_PER_SM`` blocks for every SM, at most ``2**MAX_AUTO_LOG_SPLIT``.
+    Small blocks keep the last wave short at large n; many keep every SM
+    busy at small n (timed on an H100 by tools/sweep_ab.py)."""
+    want = BLOCKS_PER_SM * int(sms)
+    log_split = MIN_AUTO_LOG_SPLIT
+    while log_split < MAX_AUTO_LOG_SPLIT and (int(n_tiles) << log_split) < want:
+        log_split += 1
+    return log_split
+
+
+def split_blocks(tile_i, tile_j, n: int, min_gap: int, log_split: int) -> np.ndarray:
+    """The kernel's cut, block by block in launch order: (B, 4) int64 rows
+    ``(i_lo, i_hi, j_lo, j_hi)`` of the half-open pose ranges each block
+    pairs, cut at n, without the blocks that leave at once (no pair with
+    j - i >= min_gap). Tile t's block p is row strip p >> log_cs of
+    ``2**log_rs`` and column strip p & (2**log_cs - 1), with
+    log_rs = log_split // 2 and log_cs = log_split - log_rs."""
+    parts = 1 << log_split
+    ti = np.repeat(np.asarray(tile_i, np.int64), parts)
+    tj = np.repeat(np.asarray(tile_j, np.int64), parts)
+    part = np.tile(np.arange(parts, dtype=np.int64), len(np.asarray(tile_i)))
+    log_rs = log_split >> 1
+    log_cs = log_split - log_rs
+    rows, cols = TILE >> log_rs, TILE >> log_cs
+    i0 = ti * TILE + (part >> log_cs) * rows
+    j0 = tj * TILE + (part & ((1 << log_cs) - 1)) * cols
+    n_cols = np.minimum(cols, n - j0)
+    keep = (i0 < n) & (n_cols > 0) & (j0 + n_cols - 1 - i0 >= min_gap)
+    return np.stack([i0, np.minimum(i0 + rows, n), j0, j0 + n_cols], axis=1)[keep]
 
 
 def index_valid_pairs(n: int, min_gap: int) -> int:
@@ -120,10 +163,20 @@ def _check_inputs(pos, floors, tile_i, tile_j) -> None:
         raise ValueError("the kernel indexes poses with int32")
 
 
-def _launch_tri_count(pos, floors, tile_i, tile_j, min_gap: int, r2: float) -> Tuple[int, int]:
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_tri_count(pos, floors, tile_i, tile_j, min_gap: int, r2: float,
+                      log_split=None) -> Tuple[int, int]:
+    """One launch with ``2**log_split`` blocks a tile (default
+    :func:`sweep_split`; the kernel takes 0 to ``MAX_LOG_SPLIT``)."""
     from mlis_tpu_torch import _build
 
     lib = _build.library()
+    if log_split is None:
+        log_split = sweep_split(tile_i.numel(), sm_count(pos.device))
     out = torch.zeros(2, dtype=torch.int64, device=pos.device)
     status = lib.mlis_tri_count(
         ctypes.c_void_p(pos.data_ptr()),
@@ -134,6 +187,7 @@ def _launch_tri_count(pos, floors, tile_i, tile_j, min_gap: int, r2: float) -> T
         ctypes.c_int(int(pos.shape[0])),
         ctypes.c_int(int(min_gap)),
         ctypes.c_double(float(r2)),
+        ctypes.c_int(int(log_split)),
         ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(pos.device).cuda_stream),
     )
@@ -152,7 +206,8 @@ def tri_count(
     r2: float,
 ) -> Tuple[int, int]:
     """(total, same_floor) over the listed tiles. CUDA tensors launch the
-    kernel (``tri_count.launches`` counts the launches); CPU tensors run
+    kernel, each tile cut into ``2**sweep_split(...)`` blocks
+    (``tri_count.launches`` counts the launches); CPU tensors run
     :func:`tri_count_plain`."""
     _check_inputs(pos, floors, tile_i, tile_j)
     if pos.device.type == "cuda":

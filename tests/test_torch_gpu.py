@@ -31,7 +31,8 @@ def _cloud(n, seed):
     return centers[rng.integers(0, 8, n)] + rng.normal(size=(n, 3)), rng.integers(1, 6, n)
 
 
-@pytest.mark.parametrize("n,min_gap", [(50, 30), (700, 25), (1500, 100), (5000, 100), (2100, 0)])
+@pytest.mark.parametrize("n,min_gap", [(50, 30), (700, 25), (1500, 100), (5000, 100), (2100, 0),
+                                       (1926, 100), (2406, 100), (513, 513), (513, 520)])
 def test_kernel_equals_plain_version(cuda, n, min_gap):
     pos, floors = _cloud(n, n)
     p, f, ti, tj = pw.pack_sweep_inputs(pos, floors, min_gap, cuda)
@@ -42,6 +43,46 @@ def test_kernel_equals_plain_version(cuda, n, min_gap):
     assert got == pw.candidate_counts_host(pos, floors, 2.0, min_gap)[:2]
     ai, aj = (torch.as_tensor(t, device=cuda) for t in pw.all_tiles(n))
     assert pw.tri_count(p, f, ai, aj, min_gap, 4.0) == got
+
+
+@pytest.mark.parametrize("log_split", range(pw.MAX_LOG_SPLIT + 1))
+@pytest.mark.parametrize("n,min_gap", [(500, 0), (1300, 100), (1100, -1100)])
+def test_kernel_at_every_cut(cuda, n, min_gap, log_split):
+    """Every cut of a tile into 2**log_split blocks (row and column strips)
+    gives the plain version's and the float64 sweep's counts, on the
+    upper-triangle list and on the full grid."""
+    pos, floors = _cloud(n, log_split)
+    p, f, ti, tj = pw.pack_sweep_inputs(pos, floors, min_gap, cuda)
+    got = pw._launch_tri_count(p, f, ti, tj, min_gap, 4.0, log_split)
+    assert got == pw.tri_count_plain(p, f, ti, tj, min_gap, 4.0)
+    assert got == pw.candidate_counts_host(pos, floors, 2.0, min_gap)[:2]
+    ai, aj = (torch.as_tensor(t, device=cuda) for t in pw.all_tiles(n))
+    assert pw._launch_tri_count(p, f, ai, aj, min_gap, 4.0, log_split) == got
+
+
+def test_kernel_refuses_a_cut_past_its_range(cuda):
+    p, f, ti, tj = pw.pack_sweep_inputs(*_cloud(100, 1), 10, cuda)
+    for log_split in (-1, pw.MAX_LOG_SPLIT + 1):
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            pw._launch_tri_count(p, f, ti, tj, 10, 4.0, log_split)
+
+
+def test_sm_count_splits_one_tile(cuda, monkeypatch):
+    """A card with many SMs makes the wrapper cut the one tile of a 500-pose
+    sweep into 2**MAX_AUTO_LOG_SPLIT blocks; a card with one SM into the
+    least power of two at or above BLOCKS_PER_SM and 2**MIN_AUTO_LOG_SPLIT.
+    Both count as the plain version does, one launch each."""
+    pos, floors = _cloud(500, 3)
+    p, f, ti, tj = pw.pack_sweep_inputs(pos, floors, 20, cuda)
+    want = pw.tri_count_plain(p, f, ti, tj, 20, 4.0)
+    one_sm = max(pw.MIN_AUTO_LOG_SPLIT, (pw.BLOCKS_PER_SM - 1).bit_length())
+    for sms, log_split in ((1000, pw.MAX_AUTO_LOG_SPLIT), (1, one_sm)):
+        monkeypatch.setattr(pw, "sm_count", lambda device, sms=sms: sms)
+        assert pw.sweep_split(len(ti), pw.sm_count(cuda)) == log_split
+        before = pw.tri_count.launches
+        assert pw.tri_count(p, f, ti, tj, 20, 4.0) == want
+        assert pw.tri_count.launches == before + 1
+    assert want == pw.candidate_counts_host(pos, floors, 2.0, 20)[:2]
 
 
 def test_kernel_boundary_pairs(cuda):

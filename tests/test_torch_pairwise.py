@@ -10,6 +10,8 @@ import textwrap
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -96,6 +98,102 @@ def test_tile_list_matches_mlis_tpu(n, min_gap):
     ii, jj = np.meshgrid(np.arange(min(n, 1200)), np.arange(min(n, 1200)), indexing="ij")
     if n <= 1200:
         assert pw.index_valid_pairs(n, min_gap) == int((jj - ii >= min_gap).sum())
+
+
+# n at the tile edges and at DROID-SLAM's and LeGO-LOAM's published trajectory
+# sizes (tests/test_parity_reference.py); min_gap from none to past n
+@pytest.mark.parametrize("n", [1, 511, 512, 513, 1926, 2406])
+@pytest.mark.parametrize("gap", ["0", "1", "100", "n", "n+5"])
+def test_counts_identical_to_mlis_tpu_at_trajectory_sizes(n, gap):
+    min_gap = {"0": 0, "1": 1, "100": 100, "n": n, "n+5": n + 5}[gap]
+    rng = np.random.default_rng(n + 7 * min_gap)
+    pos = _random_cloud(n, rng, scale=6.0)  # denser than a walk: many pairs within r
+    floors = rng.integers(1, 6, size=n)
+    want = jpw.candidate_counts_host(pos, floors, radius=2.0, min_gap=min_gap)
+    got = pw.candidate_counts(pos, floors, radius=2.0, min_gap=min_gap, device="cpu")
+    assert got == want
+    if len(pw.tile_list(n, min_gap)[0]):  # the JAX kernel takes no empty tile list
+        assert got == jpw.candidate_counts(pos, floors, radius=2.0, min_gap=min_gap)
+    else:
+        assert got == (0, 0, 0)
+
+
+def _rect_counts(pos, floors, rect, min_gap, r2):
+    """(total, same_floor) of the pairs (i, j) in one block's rectangle with
+    j - i >= min_gap, d2 = dx*dx + dy*dy + dz*dz in float64."""
+    i_lo, i_hi, j_lo, j_hi = (int(v) for v in rect)
+    d = [pos[i_lo:i_hi, None, k] - pos[None, j_lo:j_hi, k] for k in range(3)]
+    d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    ok = (np.arange(j_lo, j_hi)[None, :] - np.arange(i_lo, i_hi)[:, None] >= min_gap) & (d2 <= r2)
+    return int(ok.sum()), int((ok & (floors[i_lo:i_hi, None] == floors[None, j_lo:j_hi])).sum())
+
+
+@settings(max_examples=40, deadline=None, database=None, derandomize=True)
+@given(n=st.integers(1, 1300), gap_frac=st.floats(-0.3, 1.2), sms=st.integers(1, 264),
+       full=st.booleans())
+def test_split_blocks_cover_each_pair_once(n, gap_frac, sms, full):
+    """The kernel's cut of every listed tile into 2**sweep_split blocks: the
+    blocks that run cover each index-valid pair of the listed tiles exactly
+    once, and the plain counts summed over them equal tri_count_plain's."""
+    min_gap = int(round(gap_frac * n))
+    ti, tj = pw.all_tiles(n) if full else pw.tile_list(n, min_gap)
+    log_split = pw.sweep_split(len(ti), sms)
+    assert pw.MIN_AUTO_LOG_SPLIT <= log_split <= pw.MAX_AUTO_LOG_SPLIT
+    assert (len(ti) << log_split) >= min(pw.BLOCKS_PER_SM * sms, len(ti) << pw.MAX_AUTO_LOG_SPLIT)
+    assert log_split == pw.MIN_AUTO_LOG_SPLIT or (len(ti) << (log_split - 1)) < pw.BLOCKS_PER_SM * sms
+    blocks = pw.split_blocks(ti, tj, n, min_gap, log_split)
+    ii, jj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    valid = jj - ii >= min_gap
+    want = np.zeros((n, n), np.int32)
+    for a, b in zip(ti, tj):
+        want[a * 512:(a + 1) * 512, b * 512:(b + 1) * 512] = 1
+    got = np.zeros((n, n), np.int32)
+    for i_lo, i_hi, j_lo, j_hi in blocks:
+        assert 0 <= i_lo < i_hi <= n and 0 <= j_lo < j_hi <= n
+        got[i_lo:i_hi, j_lo:j_hi] += 1
+    np.testing.assert_array_equal(got * valid, want * valid)
+    # every block that runs holds a valid pair; its corner is the largest j - i
+    assert all(j_hi - 1 - i_lo >= min_gap for i_lo, _, _, j_hi in blocks)
+
+    rng = np.random.default_rng(n)
+    pos = _random_cloud(n, rng, scale=4.0)
+    floors = rng.integers(1, 4, size=n)
+    sums = np.sum([_rect_counts(pos, floors, r, min_gap, 4.0) for r in blocks], axis=0,
+                  dtype=np.int64).reshape(-1)
+    sums = (int(sums[0]), int(sums[1])) if len(blocks) else (0, 0)
+    p, f = torch.as_tensor(pos), torch.as_tensor(floors.astype(np.int32))
+    assert sums == pw.tri_count_plain(p, f, torch.as_tensor(ti), torch.as_tensor(tj), min_gap, 4.0)
+
+
+@pytest.mark.parametrize("log_split", range(9))
+def test_split_blocks_at_every_cut(log_split):
+    """Each cut the kernel takes (1 to 256 blocks a tile): the blocks of one
+    512 x 512 tile are 2**(log_split // 2) row strips times the rest in
+    column strips, and together they hold the tile's pairs."""
+    n = 1024
+    ti, tj = pw.all_tiles(n)
+    blocks = pw.split_blocks(ti, tj, n, -n, log_split)  # every pair index-valid
+    assert len(blocks) == len(ti) << log_split
+    rows = 512 >> (log_split // 2)
+    cols = 512 >> (log_split - log_split // 2)
+    first = blocks[: 1 << log_split]
+    np.testing.assert_array_equal(np.unique(first[:, 0]), np.arange(0, 512, rows))
+    np.testing.assert_array_equal(np.unique(first[:, 2]), np.arange(0, 512, cols))
+    assert int(((blocks[:, 1] - blocks[:, 0]) * (blocks[:, 3] - blocks[:, 2])).sum()) == n * n
+
+
+def test_sweep_split_fills_the_card_at_trajectory_sizes():
+    """On an H100's 132 SMs: DROID-SLAM's 1,926 poses (10 tiles), LeGO-LOAM's
+    2,406 (15), the 4,000-pose cloud's upper triangle (36) and full grid
+    (64) and ORB-SLAM3's 19,163 (741) each give the grid at least two blocks
+    an SM; the cuts are the ones tools/sweep_ab.py timed fastest (or within
+    a few percent) on an H100."""
+    want = {1926: 6, 2406: 6, 4000: 5, -4000: 5, 19163: 3}
+    for n, tiles in ((1926, "tri"), (2406, "tri"), (4000, "tri"), (-4000, "all"), (19163, "tri")):
+        ti = pw.tile_list(abs(n), 100)[0] if tiles == "tri" else pw.all_tiles(abs(n))[0]
+        log_split = pw.sweep_split(len(ti), 132)
+        assert len(ti) << log_split >= 2 * 132, (n, len(ti), log_split)
+        assert log_split == want[n], (n, len(ti), log_split)
 
 
 def test_pairs_host_consistent_with_counts():
