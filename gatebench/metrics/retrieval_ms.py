@@ -1,0 +1,12 @@
+"""retrieval_ms: device milliseconds a call inside the program's ``gate.retrieval`` range
+(retrieval, pair dedup and the floor gate): the busy time of the device inside the range's device
+annotations over the traced window, divided by the calls completed."""
+
+RANGE = "gate.retrieval"
+
+
+def read(run):
+    busy = run.trace.range_s.get(RANGE)
+    if busy is None or not run.calls:
+        return None
+    return 1e3 * busy / len(run.calls)
