@@ -41,8 +41,10 @@ has on the device, so the result never depends on the budget.
 Each stage runs inside a ``torch.profiler`` range (``gate.detect``,
 ``gate.encode``, ``gate.retrieval``, ``lightglue.match`` with
 ``superglue.sinkhorn`` inside it for SuperGlue, ``loftr.match``,
-``orb.match``, ``epipolar.ransac``) so that a profile attributes device
-time to stages.
+``orb.match``, ``epipolar.ransac``, ``gate.results``), the whole call
+inside ``gate.process``, so that a profile attributes device time to
+stages; each host wait on the exact path sits in a ``sync.<site>`` range
+(:func:`mlis_tpu_torch.utils.profiling.sync_point`).
 """
 
 from __future__ import annotations
@@ -53,7 +55,6 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from mlis_tpu_torch.gating.gate import gate_mask
 from mlis_tpu_torch.gating.place_recognition import SemanticPlaceRecognition
@@ -61,6 +62,7 @@ from mlis_tpu_torch.gating.verification import GeometricVerifier, MatchResult, p
 from mlis_tpu_torch.models.superpoint import Keypoints
 from mlis_tpu_torch.ops.image import to_grayscale
 from mlis_tpu_torch.ops.knn import cosine_topk
+from mlis_tpu_torch.utils.profiling import span, sync_point
 
 
 def _sync(device: torch.device) -> None:
@@ -109,8 +111,18 @@ def _gate_compact(
     accept = uniq & gate_mask(floors, lo_s, hi_s, strict)
     total, rejected = uniq.sum(), (uniq & ~accept).sum()
     if M is None:
-        total, rejected = (int(v) for v in torch.stack([total, rejected]).tolist())
-        return lo_s[accept], hi_s[accept], (total, rejected)
+        # only the host reads sit in sync ranges: the kernels before and
+        # after them stay in the caller's range, whose device annotation
+        # then spans the compaction (``t[mask]`` is ``t[mask.nonzero()[:, 0]]``)
+        counts = torch.stack([total, rejected])
+        with sync_point("counts"):
+            total, rejected = (int(v) for v in counts.tolist())
+        with sync_point("survivors"):
+            iq = accept.nonzero().select(1, 0)
+        qi = lo_s[iq]
+        with sync_point("survivors"):
+            im = accept.nonzero().select(1, 0)
+        return qi, hi_s[im], (total, rejected)
     if not 0 <= M <= skeys.numel():
         raise ValueError(f"slot count M={M} must lie in [0, n * k = {skeys.numel()}]")
     nsurv = accept.sum()
@@ -287,6 +299,15 @@ class FullGatePipeline:
 
         ``images`` may be a tensor already on the device (as bench.py passes
         device arrays), which then is not copied."""
+        with span("gate.process"):
+            return self._process(images, timestamps, floor_labels, K, encode_batch_size,
+                                 verify, upload_chunk, survivor_budget, monolithic,
+                                 ransac_uniforms, generator)
+
+    def _process(self, images, timestamps, floor_labels, K, encode_batch_size, verify,
+                 upload_chunk, survivor_budget, monolithic, ransac_uniforms,
+                 generator) -> FullGateResult:
+        """:meth:`process` inside its ``gate.process`` range."""
         n = len(images)
         res = FullGateResult()
         dev = self.device
@@ -296,17 +317,20 @@ class FullGatePipeline:
         budget_ok = (survivor_budget is not None and fused_ok and encode_dev is not None
                      and n * n < 2**31)
         k = min(self.top_k, n)
-        floors = torch.as_tensor(np.asarray(floor_labels).astype(np.int64), device=dev)
+        with sync_point("upload_floors"):
+            floors = torch.as_tensor(np.asarray(floor_labels).astype(np.int64), device=dev)
         hw = (int(images.shape[1]), int(images.shape[2]))
         gen_state = generator.get_state() if budget_ok and generator is not None else None
         if not isinstance(images, torch.Tensor):
             images = np.ascontiguousarray(images)
-        imgs = torch.as_tensor(images, device=dev)  # no copy when already there
+        with sync_point("upload_images"):
+            imgs = torch.as_tensor(images, device=dev)  # no copy when already there
 
         if budget_ok and monolithic:
             M = int(min(self._budget_slots(min(survivor_budget, n * k)), n * k))
             uniforms = self._slot_uniforms(ransac_uniforms, M)
-            times = torch.as_tensor(np.asarray(timestamps, np.float32), device=dev)
+            with sync_point("upload_times"):
+                times = torch.as_tensor(np.asarray(timestamps, np.float32), device=dev)
             kp_all, db = self._detect_encode_once(imgs)
             res.vpr_s = time.perf_counter() - t_start
             t0 = time.perf_counter()
@@ -315,15 +339,16 @@ class FullGatePipeline:
                 return self._finish(res, out, t0, t_start)
         else:
             # 1) keypoints once per keyframe + VPR descriptors, device-resident
-            with record_function("gate.detect"):
+            with span("gate.detect"):
                 kp_all = self._detect_all(imgs) if fused_ok else None
             if encode_dev is not None:
-                with record_function("gate.encode"):
+                with span("gate.encode"):
                     db = torch.cat([
                         encode_dev(imgs[s : s + encode_batch_size])
                         for s in range(0, n, encode_batch_size)
                     ])
-                times = torch.as_tensor(np.asarray(timestamps, np.float32), device=dev)
+                with sync_point("upload_times"):
+                    times = torch.as_tensor(np.asarray(timestamps, np.float32), device=dev)
             else:
                 for s in range(0, n, encode_batch_size):
                     e = min(s + encode_batch_size, n)
@@ -331,7 +356,8 @@ class FullGatePipeline:
                 db = torch.as_tensor(self.spr.vpr.build_descriptor_matrix(), device=dev)
                 times = torch.as_tensor(self.spr.vpr.timestamps().astype(np.float32), device=dev)
             if not budget_ok:
-                _sync(dev)
+                with sync_point("detect_encode"):
+                    _sync(dev)
             res.vpr_s = time.perf_counter() - t_start
 
             # 2-4 budgeted) static compaction, bucketed fused verify, one fetch
@@ -339,7 +365,7 @@ class FullGatePipeline:
                 M = int(min(survivor_budget, n * k))
                 uniforms = self._slot_uniforms(ransac_uniforms, M)
                 t0 = time.perf_counter()
-                with record_function("gate.retrieval"):
+                with span("gate.retrieval"):
                     qi, mi, stats = _gate_compact(
                         db, times, floors, k=k, M=M, **self._gate_kw())
                 res.retrieval_s = time.perf_counter() - t0
@@ -355,7 +381,7 @@ class FullGatePipeline:
 
         # 2-3) retrieval, dedup, floor gate, compaction
         t0 = time.perf_counter()
-        with record_function("gate.retrieval"):
+        with span("gate.retrieval"):
             qi, mi, (total, rejected) = _gate_compact(db, times, floors, k=k, **self._gate_kw())
         res.total_pairs, res.cross_floor_rejected = total, rejected
         res.retrieval_s = time.perf_counter() - t0
@@ -408,7 +434,8 @@ class FullGatePipeline:
         h8 = (int(H * scale) // 8) * 8
         w8 = (int(W * scale) // 8) * 8
         gray = to_grayscale(images, size=(h8, w8))
-        sxy = torch.tensor([W / w8, H / h8], dtype=torch.float32, device=images.device)
+        with sync_point("upload_scale"):
+            sxy = torch.tensor([W / w8, H / h8], dtype=torch.float32, device=images.device)
         sp = self.verifier.matcher.sp
         top_m = self.match_top_k
         kps = []
@@ -425,9 +452,9 @@ class FullGatePipeline:
         one-fetch path ignores ``encode_batch_size``, as the JAX package's
         single program does)."""
         n = int(imgs.shape[0])
-        with record_function("gate.detect"):
+        with span("gate.detect"):
             kp_all = self._detect_all(imgs, detect_batch=max(n, 1))
-        with record_function("gate.encode"):
+        with span("gate.encode"):
             db = self.spr.vpr.encode_batch_device(imgs)
         return kp_all, db
 
@@ -440,7 +467,8 @@ class FullGatePipeline:
                 f"ransac_uniforms must be {(S, self.num_hypotheses, 8)}, got {tuple(uniforms.shape)}"
             )
         gray = to_grayscale(imgs)
-        pairs = torch.stack([qi, mi], 1).cpu().numpy()
+        with sync_point("fetch_pairs"):
+            pairs = torch.stack([qi, mi], 1).cpu().numpy()
         return self.verifier.verify_pairs_batch(
             gray[qi], gray[mi], K, indices=[(int(a), int(b)) for a, b in pairs],
             batch_size=self.verify_batch, uniforms=uniforms, generator=generator)
@@ -468,9 +496,12 @@ class FullGatePipeline:
             u = uniforms[s : s + B].to(self.device) if uniforms is not None else None
             rows.append(pack_rows(fused(kp_all, qi[s : s + B], mi[s : s + B],
                                         uniforms=u, generator=generator)))
-        flat = torch.cat(rows).cpu().numpy()  # one fetch
-        pairs = torch.stack([qi, mi], 1).cpu().numpy()
-        return self.verifier.results_from_rows(pairs, flat)
+        with sync_point("fetch_rows"):
+            flat = torch.cat(rows).cpu().numpy()  # one fetch
+        with sync_point("fetch_pairs"):
+            pairs = torch.stack([qi, mi], 1).cpu().numpy()
+        with span("gate.results"):
+            return self.verifier.results_from_rows(pairs, flat)
 
     def _verify_compacted(self, kp_all, qi_all, mi_all, stats, K, hw, uniforms, generator):
         """The budgeted path's verify: the fused matcher over the M slots in
@@ -490,7 +521,7 @@ class FullGatePipeline:
     def _verify_slots(self, kp_all, db, times, floors, K, hw, k, M, uniforms, generator):
         """The one-fetch path's tail: the static gate, one fused call over
         all M slots, one packed fetch. None on an overflow."""
-        with record_function("gate.retrieval"):
+        with span("gate.retrieval"):
             qi, mi, stats = _gate_compact(db, times, floors, k=k, M=M, **self._gate_kw())
         out = self._get_fused(hw, K)(kp_all, qi, mi, uniforms=uniforms, generator=generator)
         return self._parse_packed(self._fetch(torch.cat([_slot_rows(qi, mi, out),
@@ -499,7 +530,8 @@ class FullGatePipeline:
     @staticmethod
     def _fetch(packed: torch.Tensor) -> np.ndarray:
         """The budget paths' one packed fetch of the (M + 1, 33) rows."""
-        return packed.cpu().numpy()
+        with sync_point("fetch_rows"):
+            return packed.cpu().numpy()
 
     def _parse_packed(self, flat: np.ndarray, M: int):
         """Decode fetched (M + 1, 33) slot rows and stats row into (results,
@@ -509,7 +541,8 @@ class FullGatePipeline:
         total, rejected, nsurv = (int(v) for v in flat[-1, :3])
         if nsurv > M:
             return None
-        results = self.verifier.results_from_rows(flat[:nsurv, :2], flat[:nsurv, 2:])
+        with span("gate.results"):
+            results = self.verifier.results_from_rows(flat[:nsurv, :2], flat[:nsurv, 2:])
         return results, total, rejected, nsurv
 
     @staticmethod

@@ -45,6 +45,7 @@ from mlis_tpu_torch.models.superpoint import Keypoints, SuperPoint, SuperPointCo
 from mlis_tpu_torch.ops.flash_attention import flash_mha
 from mlis_tpu_torch.ops.image import to_grayscale
 from mlis_tpu_torch.ops.sinkhorn import sinkhorn_with_dustbin
+from mlis_tpu_torch.utils.profiling import span, sync_point
 from mlis_tpu_torch.weights import load_npz, matcher_arch_from_npz
 
 FLASH_MIN_PRODUCT = 1024 * 1024  # Kx * Ks above which the reference uses flash attention
@@ -89,7 +90,8 @@ class Matches(NamedTuple):
 
 def normalize_keypoints(coords: torch.Tensor, image_hw) -> torch.Tensor:
     h, w = image_hw
-    size = torch.tensor([w, h], dtype=torch.float32, device=coords.device)
+    with sync_point("image_size"):
+        size = torch.tensor([w, h], dtype=torch.float32, device=coords.device)
     return (coords - size / 2.0) / (size.max() / 2.0)
 
 
@@ -123,14 +125,15 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype. Logits and softmax in float32; above Kx*Ks = 1024^2 the flash
     kernel (bf16 p v operands, as in the JAX package)."""
     Dh = q.shape[-1]
-    keep = torch.arange(k.shape[1], device=k.device)[None, :] < kv_len[:, None]  # (B, S)
-    if q.shape[1] * k.shape[1] > FLASH_MIN_PRODUCT:
-        return flash_mha(q, k, v, kv_valid=keep).to(v.dtype)
-    logits = torch.einsum("btnh,bsnh->bnts", q.to(torch.float32), k.to(torch.float32))
-    logits = logits * torch.tensor(1.0 / np.sqrt(Dh), dtype=torch.float32)
-    logits = logits.masked_fill(~keep[:, None, None, :], _LARGE_NEGATIVE)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bnts,bsnh->btnh", probs, v)
+    with span("lightglue.attention"):
+        keep = torch.arange(k.shape[1], device=k.device)[None, :] < kv_len[:, None]  # (B, S)
+        if q.shape[1] * k.shape[1] > FLASH_MIN_PRODUCT:
+            return flash_mha(q, k, v, kv_valid=keep).to(v.dtype)
+        logits = torch.einsum("btnh,bsnh->bnts", q.to(torch.float32), k.to(torch.float32))
+        logits = logits * torch.tensor(1.0 / np.sqrt(Dh), dtype=torch.float32)
+        logits = logits.masked_fill(~keep[:, None, None, :], _LARGE_NEGATIVE)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        return torch.einsum("bnts,bsnh->btnh", probs, v)
 
 
 class AttnLayer(nn.Module):
@@ -208,31 +211,32 @@ class MatcherNet(nn.Module):
         for blk in self.blocks:
             xc = blk["self"](xc, xc, mc, rot_x=rot, rot_src=rot)
             xc = blk["cross"](xc, torch.roll(xc, B, dims=0), ms)
-        fc = self.final_proj(xc)
-        f0, f1 = fc[:B], fc[B:]
-        sim = torch.einsum("bkd,bld->bkl", f0.to(torch.float32), f1.to(torch.float32))
-        sim = sim / (self.cfg.dim**0.5)
-        mask2d = m0[:, :, None] & m1[:, None, :]
-        if self.cfg.assignment == "sinkhorn":
-            with record_function("superglue.sinkhorn"):
-                # in place (B x K x K float32): the division saved nothing
-                # that autograd needs, so the backward pass is unaffected
-                sim = sim.masked_fill_(~mask2d, -1e9)
-                log_p = sinkhorn_with_dustbin(sim, self.dustbin, self.cfg.sinkhorn_iterations)
-                del sim
-                scores = torch.exp(log_p[:, :-1, :-1])[:, :K0, :K1]
-                if return_matchability:
-                    return (scores, 1.0 - torch.exp(log_p[:, :-1, -1])[:, :K0],
-                            1.0 - torch.exp(log_p[:, -1, :-1])[:, :K1])
-                return scores
-        z0 = self.matchability(f0)[..., 0]
-        z1 = self.matchability(f1)[..., 0]
-        sim_m = torch.where(mask2d, sim, torch.full_like(sim, -1e30))
-        p = torch.softmax(sim_m, dim=2) * torch.softmax(sim_m, dim=1)
-        scores = p * torch.sigmoid(z0)[:, :, None] * torch.sigmoid(z1)[:, None, :]
-        if return_matchability:
-            return scores[:, :K0, :K1], torch.sigmoid(z0)[:, :K0], torch.sigmoid(z1)[:, :K1]
-        return scores[:, :K0, :K1]
+        with span("lightglue.assign"):
+            fc = self.final_proj(xc)
+            f0, f1 = fc[:B], fc[B:]
+            sim = torch.einsum("bkd,bld->bkl", f0.to(torch.float32), f1.to(torch.float32))
+            sim = sim / (self.cfg.dim**0.5)
+            mask2d = m0[:, :, None] & m1[:, None, :]
+            if self.cfg.assignment == "sinkhorn":
+                with record_function("superglue.sinkhorn"):
+                    # in place (B x K x K float32): the division saved nothing
+                    # that autograd needs, so the backward pass is unaffected
+                    sim = sim.masked_fill_(~mask2d, -1e9)
+                    log_p = sinkhorn_with_dustbin(sim, self.dustbin, self.cfg.sinkhorn_iterations)
+                    del sim
+                    scores = torch.exp(log_p[:, :-1, :-1])[:, :K0, :K1]
+                    if return_matchability:
+                        return (scores, 1.0 - torch.exp(log_p[:, :-1, -1])[:, :K0],
+                                1.0 - torch.exp(log_p[:, -1, :-1])[:, :K1])
+                    return scores
+            z0 = self.matchability(f0)[..., 0]
+            z1 = self.matchability(f1)[..., 0]
+            sim_m = torch.where(mask2d, sim, torch.full_like(sim, -1e30))
+            p = torch.softmax(sim_m, dim=2) * torch.softmax(sim_m, dim=1)
+            scores = p * torch.sigmoid(z0)[:, :, None] * torch.sigmoid(z1)[:, None, :]
+            if return_matchability:
+                return scores[:, :K0, :K1], torch.sigmoid(z0)[:, :K0], torch.sigmoid(z1)[:, :K1]
+            return scores[:, :K0, :K1]
 
 
 def extract_matches(scores, m0, m1, threshold: float) -> Matches:
@@ -388,17 +392,18 @@ class LightGlue(BaseFeatureMatcher):
         from mlis_tpu_torch.ops.epipolar import essential_ransac_batch
 
         image_hw = (int(image_hw[0]), int(image_hw[1]))
-        K_t = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
+        with sync_point("upload_intrinsics"):
+            K_t = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
 
         @torch.no_grad()
         def run(kp_all: Keypoints, qi, mi, uniforms=None, generator=None):
-            with record_function("lightglue.match"):
+            with span("lightglue.match"):
                 kp0 = kp_all.map(lambda x: x[qi])
                 kp1 = kp_all.map(lambda x: x[mi])
                 matches = self.match_keypoints(kp0, kp1, image_hw)
                 idx = matches.idx0.clamp(0, kp1.coords.shape[1] - 1).long()
                 mk1 = kp1.coords.gather(1, idx[..., None].expand(-1, -1, 2))
-            with record_function("epipolar.ransac"):
+            with span("epipolar.ransac"):
                 res, T, _good = essential_ransac_batch(
                     kp0.coords, mk1, matches.valid, K_t, num_hypotheses,
                     ransac_threshold, ransac_subset, uniforms=uniforms, generator=generator,

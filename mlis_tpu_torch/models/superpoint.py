@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from mlis_tpu_torch.models.layers import Conv
 from mlis_tpu_torch.ops.knn import topk_lower_index
+from mlis_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +169,8 @@ class SuperPoint:
         """(B, H, W, 1) float grayscale in [0, 1] -> Keypoints (static K)."""
         cfg = self.cfg
         heat, desc_map = self.net(images.to(self.device))
-        heat = nms_heatmap(heat, cfg.nms_radius)
-        coords, scores, mask = topk_keypoints(heat, cfg.max_keypoints, cfg.detection_threshold)
+        with span("superpoint.nms_topk"):
+            heat = nms_heatmap(heat, cfg.nms_radius)
+            coords, scores, mask = topk_keypoints(heat, cfg.max_keypoints,
+                                                  cfg.detection_threshold)
         return Keypoints(coords, scores, sample_descriptors(desc_map, coords), mask)

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from mlis_tpu_torch.models.layers import Conv, Dense, LayerNorm, flax_init_, trunc_normal_
 from mlis_tpu_torch.ops.attention import multi_head_attention
+from mlis_tpu_torch.utils.profiling import sync_point
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,8 +142,10 @@ def _interpolate_pos_embed(pos: torch.Tensor, grid: Tuple[int, int]) -> torch.Te
     G = int(round(G2**0.5))
     if (G, G) == tuple(grid):
         return pos
-    wh = torch.as_tensor(resample_weights(G, grid[0]), dtype=torch.float32, device=pos.device)
-    ww = torch.as_tensor(resample_weights(G, grid[1]), dtype=torch.float32, device=pos.device)
+    with sync_point("posembed"):
+        wh = torch.as_tensor(resample_weights(G, grid[0]), dtype=torch.float32, device=pos.device)
+    with sync_point("posembed"):
+        ww = torch.as_tensor(resample_weights(G, grid[1]), dtype=torch.float32, device=pos.device)
     p = pos.reshape(G, G, D).to(torch.float32)
     p = torch.einsum("hi,ijd->hjd", wh, p)
     p = torch.einsum("wj,hjd->hwd", ww, p)

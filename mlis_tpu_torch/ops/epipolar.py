@@ -27,6 +27,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from mlis_tpu_torch.utils.profiling import sync_point
+
 
 class EssentialResult(NamedTuple):
     E: torch.Tensor  # (P, 3, 3)
@@ -51,8 +53,10 @@ def normalize_points(pts: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
 
 def _project_essential(E: torch.Tensor) -> torch.Tensor:
     """Project (..., 3, 3) onto the essential manifold (singular values 1, 1, 0)."""
-    u, _, vt = torch.linalg.svd(E)
-    d = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
+    with sync_point("svd"):
+        u, _, vt = torch.linalg.svd(E)
+    with sync_point("upload_const"):
+        d = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
     return (u * d) @ vt
 
 
@@ -213,11 +217,13 @@ def recover_pose_batch(
     Returns (T (P, 4, 4), num_good (P,) int32, det R (P,))."""
     x1 = normalize_points(kpts1.to(torch.float32), K)
     x2 = normalize_points(kpts2.to(torch.float32), K)
-    u, _, vt = torch.linalg.svd(E)
+    with sync_point("svd"):
+        u, _, vt = torch.linalg.svd(E)
     u = u * torch.sign(torch.linalg.det(u))[:, None, None]
     vt = vt * torch.sign(torch.linalg.det(vt))[:, None, None]
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    with sync_point("upload_const"):
+        W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                         dtype=E.dtype, device=E.device)
     R1 = u @ W @ vt
     R2 = u @ W.T @ vt
     tvec = u[:, :, 2]

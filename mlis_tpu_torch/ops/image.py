@@ -13,6 +13,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from mlis_tpu_torch.utils.profiling import sync_point
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 # ITU-R BT.601 luma weights in BGR channel order (cv2.cvtColor convention)
@@ -47,8 +49,10 @@ def preprocess_imagenet(
     elif bgr:
         x = x.flip(-1)
     x = resize_nhwc(x, size, antialias)
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+    with sync_point("upload_norm"):
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
+    with sync_point("upload_norm"):
+        std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
     return (x - mean) / std
 
 
@@ -61,7 +65,8 @@ def to_grayscale(
     if x.dim() == 3:
         x = x[..., None] if x.shape[-1] not in (1, 3) else x[None]
     if x.shape[-1] == 3:
-        w = torch.tensor(BT601_BGR, dtype=torch.float32, device=x.device)
+        with sync_point("upload_luma"):
+            w = torch.tensor(BT601_BGR, dtype=torch.float32, device=x.device)
         if not bgr:
             w = w.flip(0)
         x = (x * w).sum(-1, keepdim=True)

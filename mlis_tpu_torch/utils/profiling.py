@@ -5,6 +5,11 @@ collects named wall-clock stages, synchronising the card at each boundary
 (``torch.cuda.synchronize()`` once CUDA is initialised; nothing on a
 CPU-only run); :func:`profile_trace` wraps ``torch.profiler`` (CPU and CUDA
 activities) and writes a Chrome trace into its directory.
+
+:func:`span` and :func:`sync_point` name the program's stages and host
+waits in a ``torch.profiler`` trace. They record only through the profiler
+(its host ranges and the device events share one clock), and with no
+profiler recording they cost one flag check. Every name holds a ``.``.
 """
 
 from __future__ import annotations
@@ -18,6 +23,24 @@ from pathlib import Path
 from typing import Dict
 
 import torch
+from torch.profiler import record_function
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while a ``torch.profiler`` session
+    records on this thread; otherwise a context that does nothing."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
+
+
+def sync_point(site: str):
+    """``span("sync." + site)``: wraps one call that makes the host wait
+    for the device (a pageable copy, a fetch, a ``synchronize``, a size
+    known only on the device, an op that checks its result on the host)."""
+    return span("sync." + site)
 
 
 class StageTimer:

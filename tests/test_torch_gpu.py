@@ -430,3 +430,128 @@ def test_tiny_gate_card_matches_cpu(cuda):
         assert ra.num_matches == rb.num_matches
         # float32 on two devices: an inlier at the Sampson threshold may flip
         assert abs(ra.num_inliers - rb.num_inliers) <= 3
+
+
+# the two benchmarked gates: (keyframe size, VPR method, its checkpoint and
+# settings, detected / matched keypoints, the matcher's checkpoint)
+NAMED_WAIT_GATES = {
+    "crica_lg512": ((270, 360), "cricavpr", "vpr_crica.npz",
+                    dict(input_size=(322, 322), descriptor_dim=10752),
+                    1024, 512, "lightglue_homog_sp.npz"),
+    "fullres_mixvpr_lg2048": ((540, 720), "mixvpr", "vpr_mixvpr.npz",
+                              dict(input_size=(320, 320), descriptor_dim=4096),
+                              2048, None, "lightglue_homog_sp_fullres.npz"),
+}
+
+
+def _named_wait_gate(config, device):
+    from mlis_tpu_torch.gating.full_gate import FullGatePipeline
+    from mlis_tpu_torch.gating.place_recognition import SemanticPlaceRecognition
+    from mlis_tpu_torch.gating.verification import GeometricVerifier
+    from mlis_tpu_torch.models.lightglue import LightGlue
+    from mlis_tpu_torch.models.resnet import ResNetConfig
+    from mlis_tpu_torch.models.superpoint import SuperPointConfig
+    from mlis_tpu_torch.models.vit import ViTConfig
+    from mlis_tpu_torch.weights import shipped_checkpoint
+
+    hw, method, vpr_ckpt, vpr_kw, max_kp, match_top_k, matcher_ckpt = NAMED_WAIT_GATES[config]
+    ckpts = [shipped_checkpoint(matcher_ckpt), shipped_checkpoint(vpr_ckpt)]
+    if None in ckpts:
+        pytest.skip(f"needs checkpoints/{matcher_ckpt} and checkpoints/{vpr_ckpt}")
+    bf16 = torch.bfloat16
+    matcher = LightGlue.from_checkpoint(
+        ckpts[0], sp_cfg=SuperPointConfig(max_keypoints=max_kp, dtype=bf16), dtype=bf16,
+        device=device)
+    if method == "mixvpr":
+        vpr_kw = dict(vpr_kw, backbone_cfg=ResNetConfig(crop_stage=3, dtype=bf16))
+    else:
+        vpr_kw = dict(vpr_kw, vit_cfg=ViTConfig.dinov2_vitb14(dtype=bf16))
+    spr = SemanticPlaceRecognition(method, similarity_threshold=0.3, min_time_gap=10.0,
+                                   device=device, checkpoint=ckpts[1], **vpr_kw)
+    verifier = GeometricVerifier(matcher=matcher, min_inliers=20, min_inlier_ratio=0.25,
+                                 ransac_threshold=3.0)
+    pipe = FullGatePipeline(vpr=spr, verifier=verifier, top_k=10, similarity_threshold=0.3,
+                            min_time_gap=10.0, verify_batch=256, strict_floor=True,
+                            match_top_k=match_top_k, matcher_weights=None,
+                            num_hypotheses=512, device=device)
+    return pipe, hw
+
+
+@pytest.mark.parametrize("config", sorted(NAMED_WAIT_GATES))
+def test_every_host_wait_of_the_gate_is_named(cuda, config, monkeypatch):
+    """One exact-path call of each benchmarked gate (CricaVPR + LightGlue at
+    512 keypoints, 270x360; MixVPR + LightGlue at 2,048, 540x720) on a
+    two-floor v2 quality scene of 128 host keyframes, under
+    ``torch.cuda.set_sync_debug_mode("warn")``: every synchronisation the
+    card reports happens inside a ``sync.*`` range, and every ``sync.*``
+    range holds one, but the explicit synchronize after encoding where the
+    mode does not report it. Prints the count by site."""
+    import json
+    import os
+    import traceback
+    import warnings
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlis_tpu_torch.eval.quality import make_quality_scene_v2
+    from mlis_tpu_torch.utils import profiling
+
+    pipe, hw = _named_wait_gate(config, cuda)
+    scene = make_quality_scene_v2(n_floors=2, n_places=32, hw=hw, seed=3, device=cuda)
+
+    def call():
+        return pipe.process(scene.images, scene.timestamps, scene.floors, scene.K,
+                            encode_batch_size=64,
+                            generator=torch.Generator(device=cuda).manual_seed(1))
+
+    stack, closed, syncs, unnamed = [], [], [], []
+    real = profiling.record_function
+
+    class Recorded:
+        """The profiler's range, with the syncs reported while it is innermost."""
+
+        def __init__(self, name):
+            self.name, self.inner, self.held = name, real(name), 0
+
+        def __enter__(self):
+            stack.append(self)
+            return self.inner.__enter__()
+
+        def __exit__(self, *exc):
+            stack.pop()
+            closed.append((self.name, self.held))
+            return self.inner.__exit__(*exc)
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            inner = stack[-1] if stack else None
+            syncs.append((f"{os.path.relpath(filename)}:{lineno}", inner and inner.name))
+            if inner is not None:
+                inner.held += 1
+            if not (inner and inner.name.startswith("sync.")):
+                unnamed.append("".join(traceback.format_stack(limit=8)[:-1]))
+
+    with torch.inference_mode():
+        call()  # the fused matcher, the kernel library and the library plans
+        torch.cuda.synchronize()
+        monkeypatch.setattr(profiling, "record_function", Recorded)
+        with profile(activities=[ProfilerActivity.CPU]), warnings.catch_warnings():
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")  # may warn itself, before the call
+            warnings.showwarning = seen
+            try:
+                res = call()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    spans = [(name, held) for name, held in closed if name.startswith("sync.")]
+    report = {"config": config, "verified": res.verified, "syncs": len(syncs),
+              "sync_spans": len(spans),
+              "by_span": dict(Counter(name for name, _ in spans).most_common()),
+              "held_by_span": dict(Counter(name for _, name in syncs).most_common()),
+              "by_line": dict(Counter(site for site, _ in syncs).most_common())}
+    print(json.dumps(report))
+    assert res.verified > 0
+    assert not unnamed, "\n".join(unnamed)
+    empty = [name for name, held in spans if held == 0 and name != "sync.detect_encode"]
+    assert not empty, report
