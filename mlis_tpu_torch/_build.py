@@ -117,7 +117,7 @@ def library() -> ctypes.CDLL:
         lib.mlis_tri_count.argtypes = [p, p, p, p, i, i, i, d, i, p, p]
         lib.mlis_tri_count.restype = ctypes.c_int
         strides = ctypes.POINTER(ll)  # 12 element strides: (b, l, h) of q, k, v, out
-        lib.mlis_flash_attention.argtypes = [p, p, p, p, p, strides, i, i, i, i, i, i, p]
+        lib.mlis_flash_attention.argtypes = [p, p, p, p, i, p, strides, i, i, i, i, i, i, p]
         lib.mlis_flash_attention.restype = ctypes.c_int
         lib.mlis_dense_attention.argtypes = [p, p, p, p, ll, ll, ll, p, strides, i, i, i, i, i, i,
                                              p]

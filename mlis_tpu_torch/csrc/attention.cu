@@ -4,7 +4,11 @@
 //   mlis_tpu/ops/flash_attention.py:31 _flash_kernel        (launched :161)
 //   mlis_tpu/ops/flash_attention.py:80 _single_block_kernel (launched :134)
 // Keys at positions >= kv_len[bh] are masked; a row with kv_len = 0
-// returns zeros (acc / max(l, 1e-20)). Q K^T and P V take their operands
+// returns zeros (acc / max(l, 1e-20)), or, with mean_empty set, the mean
+// of V over all T keys: the softmax of T equal logits, which is what a
+// dense softmax over a fully masked row gives (LightGlue's attention at
+// Kx * Ks <= 1024^2). Such a row takes its Q as zero and runs over every
+// key, so Q K^T is exactly 0 everywhere. Q K^T and P V take their operands
 // in the input dtype: P is cast to V's dtype before the P V product, as
 // the TPU kernels do. The key loop stops at kv_len.
 //
@@ -329,7 +333,7 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_v,
                        const __grid_constant__ CUtensorMap tm_o, const int* __restrict__ kv_len,
                        const float* __restrict__ bias, long long sb, long long sh, long long ss,
-                       int H, int S, int T_keys, float scale_log2) {
+                       int H, int S, int T_keys, float scale_log2, int mean_empty) {
   using L = Smem<D>;
   using Sw = Swizzle<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -342,7 +346,9 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * kBQ;
-  const int n_keys = kDense ? T_keys : min(max(kv_len[bh], 0), T_keys);
+  const int n_valid = kDense ? T_keys : min(max(kv_len[bh], 0), T_keys);
+  const bool uniform = !kDense && mean_empty && n_valid == 0;  // every key, Q taken as zero
+  const int n_keys = uniform ? T_keys : n_valid;
   const int n_tiles = (n_keys + kBK - 1) / kBK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -524,6 +530,12 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     return;
   }
   mbar_wait(bar_q, 0);
+  if (uniform) {  // zero this warpgroup's Q tile, then make it visible to wgmma
+    uint4* qt = reinterpret_cast<uint4*>(smem + (sq - base));
+    for (int i = threadIdx.x % 128; i < L::kTile / 16; i += 128) qt[i] = make_uint4(0, 0, 0, 0);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync(1 + wg, 128);
+  }
   for (int i = 0; i < n_tiles; ++i) {
     float sc[32], alpha[2];
     wait_tile(i);
@@ -568,7 +580,7 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out, QKVO st,
                      const int* __restrict__ kv_len, const float* __restrict__ bias,
                      long long sb, long long sh, long long ss, int H, int S, int T_keys,
-                     float scale) {
+                     float scale, int mean_empty) {
   __shared__ float sK[kF32BK][D];
   __shared__ float sV[kF32BK][D];
   __shared__ float sP[kF32BK][kF32Rows];  // column threadIdx.x: this row's scores
@@ -580,12 +592,14 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + b * st.v.b + h * st.v.h;
   const float* biasb = nullptr;
   if (kDense && bias != nullptr) biasb = bias + b * sb + h * sh;
-  const int n_keys = kDense ? T_keys : min(max(kv_len[bh], 0), T_keys);
+  const int n_valid = kDense ? T_keys : min(max(kv_len[bh], 0), T_keys);
+  const bool uniform = !kDense && mean_empty && n_valid == 0;  // as in the wgmma kernel
+  const int n_keys = uniform ? T_keys : n_valid;
 
   float qr[D], o[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    qr[d] = row < S ? qb[row * st.q.l + d] : 0.f;
+    qr[d] = row < S && !uniform ? qb[row * st.q.l + d] : 0.f;
     o[d] = 0.f;
   }
   float m_run = -INFINITY, l_run = 0.f;
@@ -697,8 +711,9 @@ int encode_map(CUtensorMap* map, const void* ptr, int B, int H, int L, Strides s
 
 template <typename T, int D, bool kDense>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, const QKVO& st,
-                 const int* kv_len, const float* bias, long long sb, long long sh,
-                 long long ss, int B, int H, int S, int T_keys, cudaStream_t stream) {
+                 const int* kv_len, int mean_empty, const float* bias, long long sb,
+                 long long sh, long long ss, int B, int H, int S, int T_keys,
+                 cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
   int rc;
   if ((rc = encode_map<T, D>(&tq, q, B, H, S, st.q)) != 0) return rc;
@@ -712,43 +727,44 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, const Q
   const float scale_log2 = (float)(kLog2e / sqrt((double)D));  // the reference's 1 / Dh**0.5
   dim3 grid((S + kBQ - 1) / kBQ, B * H);
   kernel<<<grid, Roles<kDense>::kThreads, Smem<D>::kAlloc, stream>>>(tq, tk, tv, to, kv_len, bias, sb, sh, ss,
-                                                       H, S, T_keys, scale_log2);
+                                                       H, S, T_keys, scale_log2, mean_empty);
   return (int)cudaGetLastError();
 }
 
 template <int D, bool kDense>
 int launch_d(int dtype, const void* q, const void* k, const void* v, void* out,
-             const QKVO& st, const int* kv_len, const float* bias, long long sb, long long sh,
-             long long ss, int B, int H, int S, int T, cudaStream_t stream) {
+             const QKVO& st, const int* kv_len, int mean_empty, const float* bias, long long sb,
+             long long sh, long long ss, int B, int H, int S, int T, cudaStream_t stream) {
   if (dtype == kF32) {
     const float scale = (float)(1.0 / sqrt((double)D));
     dim3 grid((S + kF32Rows - 1) / kF32Rows, B * H);
     attention_f32_kernel<D, kDense><<<grid, kF32Rows, 0, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)out, st, kv_len, bias, sb,
-        sh, ss, H, S, T, scale);
+        sh, ss, H, S, T, scale, mean_empty);
     return (int)cudaGetLastError();
   }
   if (dtype == kBF16)
-    return launch_wgmma<__nv_bfloat16, D, kDense>(q, k, v, out, st, kv_len, bias, sb, sh, ss,
-                                                  B, H, S, T, stream);
+    return launch_wgmma<__nv_bfloat16, D, kDense>(q, k, v, out, st, kv_len, mean_empty, bias, sb,
+                                                  sh, ss, B, H, S, T, stream);
   if (dtype == kF16)
-    return launch_wgmma<__half, D, kDense>(q, k, v, out, st, kv_len, bias, sb, sh, ss, B, H, S,
-                                           T, stream);
+    return launch_wgmma<__half, D, kDense>(q, k, v, out, st, kv_len, mean_empty, bias, sb, sh,
+                                           ss, B, H, S, T, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 template <bool kDense>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out,
-           const long long* strides, const int* kv_len, const float* bias, long long sb,
-           long long sh, long long ss, int B, int H, int S, int T, int D, void* stream) {
+           const long long* strides, const int* kv_len, int mean_empty, const float* bias,
+           long long sb, long long sh, long long ss, int B, int H, int S, int T, int D,
+           void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   const QKVO st = {{strides[0], strides[1], strides[2]}, {strides[3], strides[4], strides[5]},
                    {strides[6], strides[7], strides[8]}, {strides[9], strides[10], strides[11]}};
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
-    case 16: return launch_d<16, kDense>(dtype, q, k, v, out, st, kv_len, bias, sb, sh, ss, B, H, S, T, s);
-    case 32: return launch_d<32, kDense>(dtype, q, k, v, out, st, kv_len, bias, sb, sh, ss, B, H, S, T, s);
-    case 64: return launch_d<64, kDense>(dtype, q, k, v, out, st, kv_len, bias, sb, sh, ss, B, H, S, T, s);
+    case 16: return launch_d<16, kDense>(dtype, q, k, v, out, st, kv_len, mean_empty, bias, sb, sh, ss, B, H, S, T, s);
+    case 32: return launch_d<32, kDense>(dtype, q, k, v, out, st, kv_len, mean_empty, bias, sb, sh, ss, B, H, S, T, s);
+    case 64: return launch_d<64, kDense>(dtype, q, k, v, out, st, kv_len, mean_empty, bias, sb, sh, ss, B, H, S, T, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -764,12 +780,15 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
 // launch, or kEncodeFailed + the CUresult (kNoEncoder without
 // cuTensorMapEncodeTiled) when a tensor map could not be built.
 
-// Flash attention with per-(b, h) key counts kv_len (B * H,) int32.
+// Flash attention with per-(b, h) key counts kv_len (B * H,) int32; a
+// row with kv_len = 0 gives zeros, or V's mean over all T keys when
+// mean_empty is not 0.
 extern "C" int mlis_flash_attention(const void* q, const void* k, const void* v,
-                                    const int* kv_len, void* out, const long long* strides,
-                                    int dtype, int B, int H, int S, int T, int D, void* stream) {
-  return launch<false>(dtype, q, k, v, out, strides, kv_len, nullptr, 0, 0, 0, B, H, S, T, D,
-                       stream);
+                                    const int* kv_len, int mean_empty, void* out,
+                                    const long long* strides, int dtype, int B, int H, int S,
+                                    int T, int D, void* stream) {
+  return launch<false>(dtype, q, k, v, out, strides, kv_len, mean_empty, nullptr, 0, 0, 0, B, H,
+                       S, T, D, stream);
 }
 
 // Dense attention over all T keys with an optional float32 bias (nullptr
@@ -779,6 +798,6 @@ extern "C" int mlis_dense_attention(const void* q, const void* k, const void* v,
                                     const float* bias, long long sb, long long sh, long long ss,
                                     void* out, const long long* strides, int dtype, int B, int H,
                                     int S, int T, int D, void* stream) {
-  return launch<true>(dtype, q, k, v, out, strides, nullptr, bias, sb, sh, ss, B, H, S, T, D,
+  return launch<true>(dtype, q, k, v, out, strides, nullptr, 0, bias, sb, sh, ss, B, H, S, T, D,
                       stream);
 }

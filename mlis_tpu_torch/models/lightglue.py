@@ -17,15 +17,22 @@ Counterpart of ``mlis_tpu/models/lightglue.py``, both heads:
   stay finite in the log-sum-exp; the marginals count every padded slot, as
   in the JAX package; matches are mutual argmax above 0.2.
 
-Attention at matcher sizes is plain tensor code, as in the JAX package
-(which sends it to XLA's dense attention up to Kx*Ks = 1024^2): logits in
-float32 from the compute-dtype operands, masked with a large negative
-number, softmax in float32, probabilities cast back and multiplied by V.
-Above 1024^2 the JAX package uses its Pallas flash kernel; here such sizes
-go to :func:`mlis_tpu_torch.ops.flash_attention.flash_mha` on both devices
-(the flash kernel on CUDA, its plain version on the CPU). The two paths
-differ for a row with no valid key: the dense one averages V, the flash
-one returns zeros, as the JAX package's flash kernel does.
+Attention (:func:`masked_attention`) follows its input. On a CUDA device,
+with bf16 or f16 operands, nothing for autograd to differentiate and a
+head width the kernel is built for (:func:`flash_kernel_route`), it runs
+the hand-written flash kernel at every size, on the q, k, v views in place,
+with the key lengths repeated over the heads: Q K^T on the compute-dtype
+operands with float32 sums, float32 logits and softmax, P cast to V's
+dtype before P V with a float32 accumulator. Anywhere else it keeps the
+JAX package's dispatch: up to Kx*Ks = 1024^2 (``FLASH_MIN_PRODUCT``)
+plain tensor code, as XLA's dense attention there (logits in float32 from
+the compute-dtype operands, masked with a large negative number, softmax
+in float32, probabilities cast back and multiplied by V); above it
+:func:`mlis_tpu_torch.ops.flash_attention.flash_mha` (the flash kernel's
+plain version on the CPU). A row with no valid key takes the answer of
+its size in the JAX package: up to 1024^2 the mean of V over every key
+(the dense softmax of equal logits; the kernel is told so), above it
+zeros, as the JAX package's flash kernel gives.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ from torch.profiler import record_function
 from mlis_tpu_torch.gating.verification import BaseFeatureMatcher
 from mlis_tpu_torch.models.layers import Dense, LayerNorm, flax_init_
 from mlis_tpu_torch.models.superpoint import Keypoints, SuperPoint, SuperPointConfig
-from mlis_tpu_torch.ops.flash_attention import flash_mha
+from mlis_tpu_torch.ops.flash_attention import HEAD_DIMS, MAX_BH, _launch_flash, flash_mha
 from mlis_tpu_torch.ops.image import to_grayscale
 from mlis_tpu_torch.ops.sinkhorn import sinkhorn_with_dustbin
 from mlis_tpu_torch.utils.profiling import span, sync_point
@@ -117,23 +124,53 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
     return torch.stack([a * c - b * s, a * s + b * c], dim=-1).reshape(B, K, H, Dh)
 
 
+def flash_kernel_route(q, k, v) -> bool:
+    """Whether :func:`masked_attention` runs on the flash kernel: q on a
+    CUDA device, q, k, v all bf16 or all f16, nothing that autograd would
+    differentiate (the kernel is forward-only), a head width and a batch of
+    heads the kernel is built for, and at least one key. Reads only the
+    tensors' device, dtype, shape and ``requires_grad``."""
+    B, _, H, Dh = q.shape
+    return (q.device.type == "cuda"
+            and q.dtype in (torch.bfloat16, torch.float16) and k.dtype == v.dtype == q.dtype
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)))
+            and Dh in HEAD_DIMS and B * H <= MAX_BH and k.shape[1] > 0)
+
+
+def dense_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           kv_len: torch.Tensor) -> torch.Tensor:
+    """The plain route of :func:`masked_attention` up to Kx*Ks = 1024^2, as
+    XLA's dense attention computes it: float32 logits from the operands,
+    keys >= kv_len at a large negative number (so a row with no valid key
+    averages V), float32 softmax, probabilities cast to v's dtype before
+    the product with v."""
+    keep = torch.arange(k.shape[1], device=k.device)[None, :] < kv_len[:, None]  # (B, S)
+    logits = torch.einsum("btnh,bsnh->bnts", q.to(torch.float32), k.to(torch.float32))
+    logits = logits * torch.tensor(1.0 / np.sqrt(q.shape[-1]), dtype=torch.float32)
+    logits = logits.masked_fill(~keep[:, None, None, :], _LARGE_NEGATIVE)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bnts,bsnh->btnh", probs, v)
+
+
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T / sqrt(Dh), keys >= kv_len masked) v.
 
     q (B, T, N, Dh), k/v (B, S, N, Dh), kv_len (B,) -> (B, T, N, Dh) in v's
-    dtype. Logits and softmax in float32; above Kx*Ks = 1024^2 the flash
-    kernel (bf16 p v operands, as in the JAX package)."""
-    Dh = q.shape[-1]
+    dtype, logits and softmax in float32. The flash kernel where
+    :func:`flash_kernel_route` allows it, told to average V in a row with
+    kv_len = 0 up to Kx*Ks = 1024^2 (zeros above); elsewhere
+    :func:`dense_masked_attention` up to 1024^2 and :func:`flash_mha` above
+    (bf16 p v operands, as in the JAX package)."""
     with span("lightglue.attention"):
-        keep = torch.arange(k.shape[1], device=k.device)[None, :] < kv_len[:, None]  # (B, S)
-        if q.shape[1] * k.shape[1] > FLASH_MIN_PRODUCT:
-            return flash_mha(q, k, v, kv_valid=keep).to(v.dtype)
-        logits = torch.einsum("btnh,bsnh->bnts", q.to(torch.float32), k.to(torch.float32))
-        logits = logits * torch.tensor(1.0 / np.sqrt(Dh), dtype=torch.float32)
-        logits = logits.masked_fill(~keep[:, None, None, :], _LARGE_NEGATIVE)
-        probs = torch.softmax(logits, dim=-1).to(v.dtype)
-        return torch.einsum("bnts,bsnh->btnh", probs, v)
+        dense_size = q.shape[1] * k.shape[1] <= FLASH_MIN_PRODUCT
+        if flash_kernel_route(q, k, v):
+            lens = kv_len[:, None].expand(-1, q.shape[2]).to(device=q.device, dtype=torch.int32)
+            return _launch_flash(q, k, v, lens.reshape(-1), mean_empty=dense_size)
+        if dense_size:
+            return dense_masked_attention(q, k, v, kv_len)
+        keep = torch.arange(k.shape[1], device=k.device)[None, :] < kv_len[:, None]
+        return flash_mha(q, k, v, kv_valid=keep).to(v.dtype)
 
 
 class AttnLayer(nn.Module):

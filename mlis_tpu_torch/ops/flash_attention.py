@@ -1,10 +1,11 @@
 """KV-tiled flash attention with per-row key counts (online softmax).
 
-Counterpart of ``mlis_tpu/ops/flash_attention.py``, for the long
-attentions the matchers need (LightGlue above 1024 x 1024 keypoints, ViT
-sequences too long for the dense kernel): softmax(q k^T / sqrt(Dh)) v where
-the keys of row ``bh`` at positions >= ``kv_len[bh]`` are masked, so a
-prefix-valid keypoint mask is a length, not an (S, T) bias.
+Counterpart of ``mlis_tpu/ops/flash_attention.py``, for the attentions
+the matchers need (LightGlue's on the card at every keypoint count, through
+``models/lightglue.masked_attention``; ViT sequences too long for the dense
+kernel): softmax(q k^T / sqrt(Dh)) v where the keys of row ``bh`` at
+positions >= ``kv_len[bh]`` are masked, so a prefix-valid keypoint mask is
+a length, not an (S, T) bias.
 
 Semantics, as in the JAX package's two Pallas kernels (``_flash_kernel``
 and ``_single_block_kernel``, which compute the same function):
@@ -13,6 +14,10 @@ and ``_single_block_kernel``, which compute the same function):
   float32; the softmax state is float32;
 * p is cast to v's dtype before the p v product, and the output is
   acc / max(l, 1e-20), so a row with ``kv_len = 0`` is zeros, not NaN.
+  ``_launch_flash(..., mean_empty=True)`` gives such a row V's mean over
+  all T keys instead, the answer of a dense softmax over a fully masked
+  row, which LightGlue keeps up to Kx * Ks = 1024^2 as the JAX package's
+  dense attention does.
 
 :func:`flash_attention` on a CUDA tensor launches the hand-written kernel
 of ``csrc/attention.cu`` (one kernel serves both Pallas kernels); on a CPU
@@ -132,9 +137,11 @@ def prepare_launch(q, k, v, name):
     return out, (ctypes.c_longlong * 12)(*vals)
 
 
-def _launch_flash(q, k, v, kv_len) -> torch.Tensor:
+def _launch_flash(q, k, v, kv_len, mean_empty: bool = False) -> torch.Tensor:
     """The flash kernel on (B, S, H, Dh) and (B, T, H, Dh) views; kv_len
-    (B * H,) int32 or None; returns a contiguous (B, S, H, Dh) output."""
+    (B * H,) int32 or None; returns a contiguous (B, S, H, Dh) output. A
+    row with kv_len = 0 gives zeros, or with ``mean_empty`` V's mean over
+    all T keys (a softmax of equal logits, as a dense masked softmax gives)."""
     from mlis_tpu_torch import _build
 
     refuse_autograd("flash_attention", q, k, v)
@@ -151,7 +158,7 @@ def _launch_flash(q, k, v, kv_len) -> torch.Tensor:
         return out
     status = _build.library().mlis_flash_attention(
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(kv_len.data_ptr()),
+        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(kv_len.data_ptr()), int(mean_empty),
         ctypes.c_void_p(out.data_ptr()), strides, DTYPE_CODES[q.dtype], B, H, S, T, Dh,
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )

@@ -122,6 +122,58 @@ def test_long_attention_runs_the_flash_kernel(cuda):
 BF16_RTOL = 2.0**-7
 
 
+def test_matcher_size_attention_runs_the_flash_kernel(cuda):
+    """bf16 LightGlue attention at 512 x 512 keypoints (Kx*Ks <= 1024^2, 2B
+    = 8, 4 heads of 64) launches the flash kernel once and agrees with the
+    plain float32-logit route on the same inputs; the row with no valid key
+    is V's mean over all 512 positions, as the plain route's softmax of
+    equal logits gives. With q requiring grad under autograd the call stays
+    on the plain route: nothing launches and the output has a grad_fn."""
+    from mlis_tpu_torch.models.lightglue import masked_attention
+    from mlis_tpu_torch.ops.flash_attention import flash_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _attn_inputs(cuda, [(8, 512, 4, 64)] * 3, torch.bfloat16, 22)
+    lens = torch.tensor([512, 300, 1, 0] * 2, device=cuda)
+    before = flash_attention.launches
+    with torch.no_grad():
+        got = masked_attention(q, k, v, lens)
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    qg = q.detach().clone().requires_grad_(True)
+    want = masked_attention(qg, k, v, lens)
+    assert flash_attention.launches == before + 1 and want.grad_fn is not None
+    torch.cuda.synchronize()
+    _assert_attention_close(got, want.detach(), v, torch.bfloat16, flash=True)
+    mean = v.float().mean(1, keepdim=True).expand(-1, 512, -1, -1)
+    for row in (3, 7):
+        torch.testing.assert_close(got[row].float(), mean[row], rtol=BF16_RTOL, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("S,T,Dh", [(512, 512, 64), (130, 70, 16), (200, 333, 32)])
+def test_flash_kernel_averages_empty_rows_when_asked(cuda, dtype, S, T, Dh):
+    """``mean_empty``: a row with kv_len = 0 gives V's mean over all T keys
+    (T not a multiple of the 64-key tile in two cases); the other rows are
+    the same launch's without it, bit for bit."""
+    from mlis_tpu_torch.ops.flash_attention import _launch_flash, flash_attention
+
+    B, H = 2, 2
+    q, k, v = _attn_inputs(cuda, [(B, S, H, Dh), (B, T, H, Dh), (B, T, H, Dh)], dtype, S + T)
+    lens = torch.tensor([T, 0, 1, 0], dtype=torch.int32, device=cuda)
+    before = flash_attention.launches
+    got = _launch_flash(q, k, v, lens, mean_empty=True)
+    zeros = _launch_flash(q, k, v, lens)
+    assert flash_attention.launches == before + 2
+    torch.cuda.synchronize()
+    assert not zeros[0, :, 1].float().any() and not zeros[1, :, 1].float().any()
+    torch.testing.assert_close(got[:, :, 0], zeros[:, :, 0], rtol=0, atol=0)
+    mean = v.float().mean(1)  # (B, H, Dh)
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 else dict(rtol=BF16_RTOL, atol=1e-5)
+    for b in range(B):
+        torch.testing.assert_close(got[b, :, 1].float(), mean[b, 1].expand(S, Dh), **tol)
+
+
 def _attn_inputs(cuda, shapes, dtype, seed):
     g = torch.Generator(device=cuda).manual_seed(seed)
     return [torch.randn(*s, generator=g, device=cuda).to(dtype) for s in shapes]

@@ -1,6 +1,8 @@
 """The port's LightGlue against mlis_tpu's, float32, with
 lightglue_homog_sp.npz loaded on both sides."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -57,6 +59,98 @@ def test_rotary_and_attention_pieces():
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), key_value_seq_lengths=jnp.asarray(kv_len)))
     got = tlg.masked_attention(*(torch.from_numpy(a) for a in (q, k, v, kv_len))).numpy()
     np.testing.assert_allclose(got, want, atol=2e-6)
+
+
+def _stand_in(device="cuda", dtype=torch.bfloat16, shape=(8, 512, 4, 64), requires_grad=False):
+    """What flash_kernel_route reads of a tensor, without a card."""
+    return SimpleNamespace(device=torch.device(device), dtype=dtype, shape=shape,
+                           requires_grad=requires_grad)
+
+
+@pytest.mark.parametrize("case,want", [
+    ({}, True),
+    ({"dtype": torch.float16}, True),
+    ({"shape": (8, 1100, 4, 16)}, True),
+    ({"device": "cpu"}, False),
+    ({"dtype": torch.float32}, False),
+    ({"requires_grad": True}, False),
+    ({"shape": (8, 512, 4, 48)}, False),
+    ({"shape": (20000, 512, 4, 64)}, False),
+])
+def test_flash_kernel_route_follows_the_input(case, want):
+    """The kernel route needs a CUDA device, bf16 / f16 operands, no
+    autograd need and a head width and batch of heads the kernel is built
+    for; the CPU, float32 matchers and training keep the plain route."""
+    q = _stand_in(**case)
+    kv = _stand_in(**{**case, "shape": case.get("shape", (8, 512, 4, 64))})
+    assert tlg.flash_kernel_route(q, kv, kv) is want
+
+
+def test_flash_kernel_route_refuses_mixed_dtypes_and_no_keys_and_allows_no_grad():
+    q = _stand_in()
+    assert not tlg.flash_kernel_route(q, _stand_in(dtype=torch.float16), _stand_in())
+    assert not tlg.flash_kernel_route(q, _stand_in(shape=(8, 0, 4, 64)),
+                                      _stand_in(shape=(8, 0, 4, 64)))
+    grad = _stand_in(requires_grad=True)
+    assert not tlg.flash_kernel_route(grad, q, q)
+    assert not tlg.flash_kernel_route(q, q, grad)
+    with torch.no_grad():  # inference of a trainable matcher: nothing to differentiate
+        assert tlg.flash_kernel_route(grad, q, q)
+    with torch.inference_mode():
+        assert tlg.flash_kernel_route(grad, grad, grad)
+
+
+def test_cpu_tensors_take_the_plain_route(monkeypatch):
+    """Real CPU tensors, bf16 under no_grad as the gate runs them: the
+    route is plain and the kernel's launcher is never reached."""
+    def refuse(*a, **kw):
+        raise AssertionError("the flash kernel was launched on the CPU")
+
+    monkeypatch.setattr(tlg, "_launch_flash", refuse)
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(4, 40, 2, 16, generator=g).to(torch.bfloat16) for _ in range(3))
+    kv_len = torch.tensor([40, 17, 1, 0])
+    with torch.no_grad():
+        assert not tlg.flash_kernel_route(q, k, v)
+        got = tlg.masked_attention(q, k, v, kv_len)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    # the empty row averages V over every key (uniform softmax)
+    probs = torch.full((40,), 1.0 / 40).to(torch.bfloat16).float()
+    want = (probs[:, None, None] * v[3].float()).sum(0)
+    torch.testing.assert_close(got[3].float(), want.expand(40, -1, -1).to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("rot,Kx,Ks", [(True, 64, 64), (False, 64, 48), (True, 1100, 1100)])
+def test_attn_layer_hands_the_kernel_its_views_in_place(monkeypatch, rot, Kx, Ks):
+    """With the route taken (forced here, since there is no card), AttnLayer
+    hands the launcher the rotated q and k and v as views that the kernel's
+    checks accept without a copy, the key lengths it holds repeated over
+    the heads as a contiguous int32 vector, and the mean-of-V rule for
+    empty rows up to Kx*Ks = 1024^2 only."""
+    from mlis_tpu_torch.ops.flash_attention import check_views, flash_mha
+
+    seen = []
+
+    def launch(q, k, v, lens, mean_empty=False):
+        check_views(q, k, v, "flash_attention")
+        seen.append((lens, mean_empty))
+        return flash_mha(q, k, v)
+
+    monkeypatch.setattr(tlg, "flash_kernel_route", lambda q, k, v: True)
+    monkeypatch.setattr(tlg, "_launch_flash", launch)
+    torch.manual_seed(6)
+    layer = tlg.AttnLayer(32, 2, torch.bfloat16)
+    B = 3
+    x = torch.randn(B, Kx, 32).to(torch.bfloat16)
+    src = x if rot else torch.randn(B, Ks, 32).to(torch.bfloat16)
+    valid = torch.arange(Ks)[None] < torch.tensor([[Ks], [5], [0]])
+    cos_sin = (torch.cos(torch.randn(B, Kx, 8)), torch.sin(torch.randn(B, Kx, 8)))
+    with torch.no_grad():
+        layer(x, src, valid, *((cos_sin, cos_sin) if rot else ()))
+    (lens, mean_empty), = seen
+    assert lens.dtype == torch.int32 and lens.is_contiguous() and lens.shape == (2 * B,)
+    assert lens.tolist() == [Ks, Ks, 5, 5, 0, 0]
+    assert mean_empty is (Kx * Ks <= tlg.FLASH_MIN_PRODUCT)
 
 
 def test_matcher_scores_and_matches_with_shipped_weights(matchers):
