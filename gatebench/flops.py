@@ -1,8 +1,9 @@
 """Work of the gate's models, counted from shapes and from the run's own counts.
 
 A multiply-add is two operations. Counted: SuperPoint per frame at the
-detect resolution; the encoder per frame (the ViT-B/14 of CricaVPR, or
-MixVPR's ResNet-50 through stage 3 and its mixer); LightGlue per
+detect resolution; the encoder per frame, as its reference module counts
+it (CricaVPR's ViT-B/14 by ``vit``, MixVPR's ResNet-50 through stage 3
+and its mixer by ``mixvpr``); LightGlue per
 verified pair at each frame's valid (matched) keypoint count and the
 checkpoint's depth. Not counted: biases, norms, activations, softmax,
 padding to verify batches or to the static keypoint count, and anything
@@ -104,18 +105,14 @@ def bound_s(ops: float, nbytes: float) -> Tuple[float, str]:
 
 
 def frame_flops(cfg: dict) -> float:
-    """Detector and encoder operations of one frame."""
+    """Detector and encoder operations of one frame: SuperPoint at the
+    detect resolution, and the encoder's own count, ``frame_flops`` of its
+    reference module ``gatebench/reference/<vpr.method>.py``."""
+    from gatebench import reference
+
     H, W = cfg["keyframe_hw"]
-    total = superpoint((H // 8) * 8, (W // 8) * 8)
     v = cfg["vpr"]
-    h, w = v["input_size"]
-    if v["method"] == "cricavpr":
-        total += vit(h, w)
-    elif v["method"] == "mixvpr":
-        total += mixvpr(h, w, int(v["descriptor_dim"]))
-    else:
-        raise ValueError(f"no operation count for encoder {v['method']}")
-    return total
+    return superpoint((H // 8) * 8, (W // 8) * 8) + reference.encoder(v["method"]).frame_flops(v)
 
 
 def pairs_flops(pairs: Iterable[Tuple[int, int]], cfg: dict) -> float:

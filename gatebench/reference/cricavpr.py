@@ -8,6 +8,12 @@ CricaVPR (Lu et al., 2024): GeM (p = 3) over the patch tokens,
 L2-normalised and zero-padded to the descriptor slot. The input is the
 mono8 frame replicated to three channels, resized bilinearly with
 antialiasing and ImageNet-normalised.
+
+Seeded weights (``seeded_params``), in the shipped ``vpr_crica.npz``
+layout: every dense and convolution kernel N(0, 1 / fan_in) (fan_in the
+product of all but its output axis), every bias N(0, 0.02^2), every
+LayerNorm scale N(1, 0.02^2), the cls token and the position table
+N(0, 0.02^2), every LayerScale gamma N(0.1, 0.02^2).
 """
 
 from __future__ import annotations
@@ -16,9 +22,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gatebench import flops
 from gatebench.reference.nets import attention, conv, dense, imagenet_input, l2n, layer_norm
+from gatebench.reference.weights import draw_normal
 
 PATCH = 14
+POS_GRID = 37  # DINOv2's pretraining grid, 518 / 14
+SEEDED_STD = 0.02  # biases, LayerNorm scales, tokens, position table, LayerScale
+SEEDED_GAMMA = 0.1  # LayerScale's mean
 
 
 def _keys_cubic(x: np.ndarray) -> np.ndarray:
@@ -78,3 +89,48 @@ def encode(p: dict, images_u8: torch.Tensor, cfg: dict, prec: str) -> torch.Tens
     patches = vit_patches(p, x, int(cfg["heads"]), prec)
     desc = l2n(patches.clamp_min(1e-6).pow(3.0).mean(1).pow(1.0 / 3.0))
     return F.pad(desc, (0, int(cfg["descriptor_dim"]) - desc.shape[-1]))
+
+
+def frame_flops(cfg: dict) -> float:
+    """Operations of one frame at ``input_size`` (``gatebench.flops.vit``)."""
+    h, w = cfg["input_size"]
+    return flops.vit(h, w, dim=int(cfg["dim"]), depth=int(cfg["depth"]))
+
+
+def attention_shape(cfg: dict):
+    """(tokens, width, blocks) of one frame's attention on the dense kernel:
+    the patches of ``input_size`` and the cls token, in every block."""
+    h, w = cfg["input_size"]
+    return (h // PATCH) * (w // PATCH) + 1, int(cfg["dim"]), int(cfg["depth"])
+
+
+def seeded_params(cfg: dict, generator) -> dict:
+    """The ViT's weights drawn from ``generator`` (the module docstring's
+    distributions), keyed as ``vpr_crica.npz``: ``{flat key: float16 array}``."""
+    D, hidden = int(cfg["dim"]), 4 * int(cfg["dim"])
+    spec = {}
+
+    def dense_(name, n_in, n_out):
+        spec[f"{name}/kernel"] = ((n_in, n_out), 0.0, n_in ** -0.5)
+        spec[f"{name}/bias"] = ((n_out,), 0.0, SEEDED_STD)
+
+    def norm_(name):
+        spec[f"{name}/scale"] = ((D,), 1.0, SEEDED_STD)
+        spec[f"{name}/bias"] = ((D,), 0.0, SEEDED_STD)
+
+    spec["cls_token"] = ((1, 1, D), 0.0, SEEDED_STD)
+    spec["pos_embed"] = ((1, POS_GRID * POS_GRID + 1, D), 0.0, SEEDED_STD)
+    spec["patch_embed/kernel"] = ((PATCH, PATCH, 3, D), 0.0, (PATCH * PATCH * 3) ** -0.5)
+    spec["patch_embed/bias"] = ((D,), 0.0, SEEDED_STD)
+    norm_("norm")
+    for i in range(int(cfg["depth"])):
+        b = f"block{i}"
+        norm_(f"{b}/norm1")
+        norm_(f"{b}/norm2")
+        dense_(f"{b}/attn/qkv", D, 3 * D)
+        dense_(f"{b}/attn/proj", D, D)
+        dense_(f"{b}/mlp/fc1", D, hidden)
+        dense_(f"{b}/mlp/fc2", hidden, D)
+        for g in ("ls1", "ls2"):
+            spec[f"{b}/{g}/gamma"] = ((D,), SEEDED_GAMMA, SEEDED_STD)
+    return draw_normal({f"vpr:params/{k}": v for k, v in spec.items()}, generator)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from gatebench import flops
 from gatebench.reference.nets import conv, dense, frozen_bn, imagenet_input, l2n, layer_norm
 
 STAGES = (3, 4, 6)  # ResNet-50's first three stages
@@ -45,3 +46,9 @@ def encode(p: dict, images_u8: torch.Tensor, cfg: dict, prec: str) -> torch.Tens
     x = dense(x.transpose(1, 2), agg["channel_proj"], prec)  # (B, HW, C')
     x = dense(x.transpose(1, 2), agg["row_proj"], prec)  # (B, C', rows)
     return l2n(x.reshape(B, -1))
+
+
+def frame_flops(cfg: dict) -> float:
+    """Operations of one frame at ``input_size`` (``gatebench.flops.mixvpr``)."""
+    h, w = cfg["input_size"]
+    return flops.mixvpr(h, w, int(cfg["descriptor_dim"]))

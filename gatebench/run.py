@@ -70,15 +70,42 @@ def load_json(path: str) -> dict:
         return json.load(f)
 
 
+def check_config(cfg: dict) -> None:
+    """Refuses (SystemExit) a configuration whose encoder the harness cannot
+    build, count or judge: its reference module lacks ``encode`` or
+    ``frame_flops``; not exactly one of ``vpr.checkpoint`` and
+    ``vpr.weights``; ``vpr.weights`` other than ``{"seed": <int>}``, or
+    given for a module without ``seeded_params``."""
+    from gatebench import reference
+
+    v = cfg["vpr"]
+    where = f"configuration {cfg.get('name', '?')}"
+    try:
+        mod = reference.encoder(v["method"])
+    except ValueError as e:
+        raise SystemExit(f"{where}: {e}") from e
+    if ("checkpoint" in v) == ("weights" in v):
+        raise SystemExit(f"{where}: give exactly one of vpr.checkpoint and vpr.weights")
+    w = v.get("weights")
+    if w is not None:
+        if set(w) != {"seed"} or not isinstance(w["seed"], int) or isinstance(w["seed"], bool):
+            raise SystemExit(f'{where}: vpr.weights must be {{"seed": <int>}}, got {w!r}')
+        if not callable(getattr(mod, "seeded_params", None)):
+            raise SystemExit(f"{where}: gatebench/reference/{v['method']}.py defines no "
+                             "seeded_params for vpr.weights")
+
+
 def cell_files(name: str, man: Optional[dict] = None) -> Tuple[dict, dict, dict]:
-    """(the cell's manifest entry, its configuration, its traffic mix)."""
+    """(the cell's manifest entry, its configuration, its traffic mix). The
+    configuration gets its manifest ``name`` and is checked (``check_config``)."""
     man = man or manifest()
     cells = {w["name"]: w for w in man["workloads"]}
     if name not in cells:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
     cell = cells[name]
     cfg_entry = {c["name"]: c for c in man["configs"]}[cell["config"]]
-    cfg = load_json(cfg_entry["file"])
+    cfg = dict(load_json(cfg_entry["file"]), name=cfg_entry["name"])
+    check_config(cfg)
     mix = load_json(os.path.join("gatebench", "traffic", cell["traffic"] + ".json"))
     return cell, cfg, mix
 
@@ -244,19 +271,17 @@ def judged_calls(calls: List[Call], seed: int) -> List[Call]:
 
 
 def reference_for(cfg: dict, device):
-    """The reference gate of ``cfg``: weights read from the checkpoints."""
-    import importlib
-
+    """The reference gate of ``cfg``: weights read from the files the program read."""
+    from gatebench import reference
     from gatebench.check import Reference
     from gatebench.reference.weights import load_group
-    from gatebench.system import checkpoint
+    from gatebench.system import checkpoint, vpr_file
 
     mt = checkpoint(cfg["matcher"]["checkpoint"])
     weights = {"superpoint": load_group(mt, "superpoint", device),
                "matcher": load_group(mt, "matcher", device),
-               "vpr": load_group(checkpoint(cfg["vpr"]["checkpoint"]), "vpr", device)}
-    encoder = importlib.import_module(f"gatebench.reference.{cfg['vpr']['method']}")
-    return Reference(cfg, weights, encoder, device)
+               "vpr": load_group(vpr_file(cfg), "vpr", device)}
+    return Reference(cfg, weights, reference.encoder(cfg["vpr"]["method"]), device)
 
 
 def judge(run: Run, pool, seed: int, device, ref=None) -> Dict[str, Optional[float]]:

@@ -14,7 +14,11 @@ from typing import Dict, List, Optional
 
 import torch
 
+from gatebench import reference
+from gatebench.reference.weights import seeded_npz
+
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WEIGHTS_DIR = os.path.join(REPO_ROOT, "build", "gatebench", "weights")
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
 
 
@@ -25,8 +29,21 @@ def checkpoint(path: str) -> str:
     return full
 
 
+def vpr_file(cfg: dict) -> str:
+    """The encoder's npz, which the program and the reference both read:
+    ``vpr.checkpoint`` in the checkout, or the file drawn from
+    ``vpr.weights``' seed under ``WEIGHTS_DIR`` (written on first use)."""
+    v = cfg["vpr"]
+    if "weights" not in v:
+        return checkpoint(v["checkpoint"])
+    return seeded_npz(WEIGHTS_DIR, cfg["name"], v, reference.encoder(v["method"]))
+
+
 def build(cfg: dict, device):
-    """``FullGatePipeline`` of the configuration, weights loaded."""
+    """``FullGatePipeline`` of the configuration, weights loaded. The
+    encoder's settings come from its ``vpr`` section, the fields that the
+    reference module reads too (CricaVPR's ViT from ``dim``, ``depth`` and
+    ``heads``)."""
     from mlis_tpu_torch.gating.full_gate import FullGatePipeline
     from mlis_tpu_torch.gating.place_recognition import SemanticPlaceRecognition
     from mlis_tpu_torch.gating.verification import GeometricVerifier
@@ -39,7 +56,7 @@ def build(cfg: dict, device):
         sp_cfg=SuperPointConfig(max_keypoints=int(det["max_keypoints"]),
                                 dtype=DTYPES[det["dtype"]]),
         dtype=DTYPES[mt["dtype"]], device=device)
-    kw: Dict = dict(checkpoint=checkpoint(vpr["checkpoint"]),
+    kw: Dict = dict(checkpoint=vpr_file(cfg),
                     descriptor_dim=int(vpr["descriptor_dim"]),
                     input_size=tuple(vpr["input_size"]))
     if vpr["method"] == "mixvpr":
@@ -50,7 +67,8 @@ def build(cfg: dict, device):
     elif vpr["method"] == "cricavpr":
         from mlis_tpu_torch.models.vit import ViTConfig
 
-        kw["vit_cfg"] = ViTConfig.dinov2_vitb14(dtype=DTYPES[vpr["dtype"]])
+        kw["vit_cfg"] = ViTConfig(dim=int(vpr["dim"]), depth=int(vpr["depth"]),
+                                  num_heads=int(vpr["heads"]), dtype=DTYPES[vpr["dtype"]])
     spr = SemanticPlaceRecognition(vpr["method"], similarity_threshold=float(g["similarity_threshold"]),
                                    min_time_gap=float(g["min_time_gap"]), device=device, **kw)
     verifier = GeometricVerifier(matcher=matcher, min_inliers=int(g["min_inliers"]),

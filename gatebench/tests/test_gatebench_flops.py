@@ -2,7 +2,7 @@
 
 import pytest
 
-from gatebench import flops
+from gatebench import flops, run
 
 
 def test_superpoint_at_the_detect_resolutions():
@@ -55,3 +55,39 @@ def test_attention_kernel_work_and_bound():
     ops, nbytes = flops.lightglue_attention(2048, 2048)
     assert (ops, nbytes) == (17_179_869_184, 16_777_216)
     assert flops.bound_s(ops, nbytes)[1] == "operations"
+
+
+@pytest.mark.parametrize("cell, expected", [
+    # SuperPoint at 264 x 360 (16,119,544,320) + the ViT-B/14 at 322 (100,863,608,832)
+    ("crica_lg512.floors2", 116_983_153_152.0),
+    # SuperPoint at 536 x 720 (65,455,119,360) + MixVPR at 320 (16,842,752,000)
+    ("fullres_mixvpr_lg2048.floors2", 82_297_871_360.0),
+])
+def test_frame_flops_of_the_shipped_configurations(cell, expected):
+    """The encoder's count comes from its reference module and equals,
+    float for float, what the harness counted before it did."""
+    _cell, cfg, _mix = run.cell_files(cell)
+    assert flops.frame_flops(cfg) == expected
+
+
+@pytest.mark.parametrize("cell, expected", [
+    # 322 px: 23 x 23 patches + cls = 530 tokens; a block's attention
+    # 4 * 530^2 * 768 = 862,924,800 operations, 4 * 530 * 768 * 2 = 3,256,320
+    # bytes; 12 blocks x 256 frames = 3,072 blocks: 2.680 ms of operations at
+    # 989 TFLOP/s against 2.986 ms of bytes at 3.35 TB/s; 2 s of launches
+    ("crica_lg512.floors2", 100.0 * 3072 * 3_256_320 / 3.35e12 / 2.0),
+    # MixVPR runs no ViT: its module gives no attention shape
+    ("fullres_mixvpr_lg2048.floors2", None),
+])
+def test_dense_attention_share_takes_its_shape_from_the_encoder(cell, expected):
+    from types import SimpleNamespace
+
+    _cell, cfg, _mix = run.cell_files(cell)
+    trace = SimpleNamespace(kernel_s={"void attention_fwd_kernel<__nv_bfloat16, 64, true>": 2.0,
+                                      "void attention_fwd_kernel<__nv_bfloat16, 64, false>": 7.0})
+    got = run.reader("dense_attn_roofline")(SimpleNamespace(
+        cfg=cfg, trace=trace, calls=[SimpleNamespace(frames=128)] * 2))
+    if expected is None:
+        assert got is None
+    else:
+        assert got[0] == pytest.approx(expected, rel=1e-12) and got[1].startswith("bound by bytes")

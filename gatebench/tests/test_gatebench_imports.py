@@ -52,7 +52,13 @@ def test_only_system_module_imports_the_program():
 
 
 def test_reference_loads_without_the_program():
-    code = ("import sys, gatebench.check, gatebench.reference.cricavpr, gatebench.reference.mixvpr;"
+    """Every module under gatebench/reference/, with check.py, in a process
+    of its own."""
+    mods = sorted(f"gatebench.reference.{os.path.splitext(f)[0]}"
+                  for f in os.listdir(os.path.join(HERE, "reference"))
+                  if f.endswith(".py") and f != "__init__.py")
+    assert {"gatebench.reference.cricavpr", "gatebench.reference.mixvpr"} <= set(mods)
+    code = (f"import sys, gatebench.check, {', '.join(mods)};"
             "bad=[m for m in sys.modules if m.split('.')[0] in "
             "('mlis_tpu_torch','mlis_tpu','jax','flax')]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=run.ROOT, capture_output=True, text=True,

@@ -1,9 +1,12 @@
 """The manifest and every file it names load by name and keep the forms the
 manifest allows: names, units, one-line texts, a reader a metric."""
 
+import copy
 import json
 import os
 import re
+import sys
+import types
 
 import pytest
 
@@ -93,6 +96,73 @@ def test_every_cell_reports_setup_another_end_to_end_and_a_layer(man):
             assert m["name"].endswith("_roofline")
     for m in man["end_to_end"]:
         assert m["source"] in ("host_clock", "device_trace") and 0.01 <= m["bound"] <= 0.25
+
+
+def _crica():
+    return run.cell_files("crica_lg512.floors2")[1]
+
+
+def _load(tmp_path, man, cfg):
+    """``cfg`` written to a file of its own and loaded through a manifest
+    whose crica_lg512 names that file, as a run loads it."""
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg))
+    man = copy.deepcopy(man)
+    for c in man["configs"]:
+        if c["name"] == "crica_lg512":
+            c["file"] = str(path)
+    return run.cell_files("crica_lg512.floors2", man)
+
+
+@pytest.mark.parametrize("change, refusal", [
+    (lambda v: v.update(weights={"seed": 5}), "exactly one"),
+    (lambda v: v.pop("checkpoint"), "exactly one"),
+    (lambda v: (v.pop("checkpoint"), v.update(weights={"seed": "5"})), "seed"),
+    (lambda v: (v.pop("checkpoint"), v.update(weights={"seed": 5, "std": 1})), "seed"),
+], ids=["both", "neither", "seed_not_int", "weights_extra_key"])
+def test_encoder_sources_are_refused_at_load(tmp_path, man, change, refusal):
+    cfg = _crica()
+    change(cfg["vpr"])
+    with pytest.raises(SystemExit, match=refusal):
+        _load(tmp_path, man, cfg)
+
+
+def test_seeded_weights_need_a_seeded_params(tmp_path, man):
+    cfg = _crica()
+    cfg["vpr"].update(method="mixvpr", weights={"seed": 5})
+    cfg["vpr"].pop("checkpoint")
+    with pytest.raises(SystemExit, match="seeded_params"):
+        _load(tmp_path, man, cfg)
+
+
+@pytest.mark.parametrize("defined, refusal", [
+    (("encode",), "frame_flops"),
+    (("frame_flops",), "encode"),
+    ((), "encode, frame_flops"),
+])
+def test_a_method_without_its_functions_is_refused_at_load(tmp_path, man, monkeypatch,
+                                                           defined, refusal):
+    mod = types.ModuleType("gatebench.reference.bare")
+    for f in defined:
+        setattr(mod, f, lambda *a: None)
+    monkeypatch.setitem(sys.modules, "gatebench.reference.bare", mod)
+    cfg = _crica()
+    cfg["vpr"]["method"] = "bare"
+    with pytest.raises(SystemExit, match=f"defines no {refusal}"):
+        _load(tmp_path, man, cfg)
+
+
+def test_a_method_without_a_module_is_refused_at_load(tmp_path, man):
+    cfg = _crica()
+    cfg["vpr"]["method"] = "no_such_encoder"
+    with pytest.raises(SystemExit, match="no reference module"):
+        _load(tmp_path, man, cfg)
+
+
+def test_the_shipped_configurations_load_as_they_are(tmp_path, man):
+    cfg = _crica()
+    _cell, got, _mix = _load(tmp_path, man, {k: v for k, v in cfg.items() if k != "name"})
+    assert got == cfg and got["name"] == "crica_lg512"
 
 
 def test_layers_are_one_line_and_consistent(man):
